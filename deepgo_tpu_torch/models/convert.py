@@ -2,7 +2,9 @@
 
 The JAX package keeps ``{"layers": [{"w": (k, k, c_in, c_out) HWIO,
 "b": (19, 19, c_out)}, ...]}``; ``PolicyCNN`` keeps per layer ``weight``
-(c_out, c_in, k, k) OIHW and ``bias`` (c_out, 19, 19). Both directions are
+(c_out, c_in, k, k) OIHW and ``bias`` (c_out, 19, 19). The quantized tree
+(``{"w_q", "w_scale", "b"}`` per layer) maps to ``QuantPolicyCNN``'s
+``w_q`` / ``w_scale`` / ``bias`` buffers the same way. Both directions are
 transposes only, so a round trip is bitwise.
 """
 
@@ -36,6 +38,36 @@ def params_to_jax(model: PolicyCNN) -> dict:
         w = layer.weight.detach().cpu().numpy()
         b = layer.bias.detach().cpu().numpy()
         layers.append({"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                       "b": np.ascontiguousarray(b.transpose(1, 2, 0))})
+    return {"layers": layers}
+
+
+def qparams_from_jax(qtree) -> dict[str, torch.Tensor]:
+    """A JAX-layout quantized tree ``{"layers": [{"w_q": (k, k, c_in,
+    c_out) int8 HWIO, "w_scale": (c_out,) f32, "b": (19, 19, c_out) f32},
+    ...]}`` -> a ``QuantPolicyCNN`` state dict of CPU tensors."""
+    state = {}
+    for i, layer in enumerate(qtree["layers"]):
+        w_q = np.asarray(layer["w_q"], dtype=np.int8)
+        b = np.asarray(layer["b"], dtype=np.float32)
+        state[f"layers.{i}.w_q"] = torch.from_numpy(
+            np.ascontiguousarray(w_q.transpose(3, 2, 0, 1)))
+        state[f"layers.{i}.w_scale"] = torch.from_numpy(
+            np.array(layer["w_scale"], dtype=np.float32))
+        state[f"layers.{i}.bias"] = torch.from_numpy(
+            np.ascontiguousarray(b.transpose(2, 0, 1)))
+    return state
+
+
+def qparams_to_jax(qmodel) -> dict:
+    """A ``QuantPolicyCNN`` -> the JAX-layout quantized tree of numpy
+    arrays (int8 ``w_q`` HWIO, float32 ``w_scale`` and ``b``)."""
+    layers = []
+    for layer in qmodel.layers:
+        w_q = layer.w_q.detach().cpu().numpy()
+        b = layer.bias.detach().cpu().numpy()
+        layers.append({"w_q": np.ascontiguousarray(w_q.transpose(2, 3, 1, 0)),
+                       "w_scale": layer.w_scale.detach().cpu().numpy(),
                        "b": np.ascontiguousarray(b.transpose(1, 2, 0))})
     return {"layers": layers}
 

@@ -110,13 +110,17 @@ class PositionBiasConv(nn.Module):
 
 class PolicyCNN(nn.Module):
     """The policy network of one ``ModelConfig``; zero-initialised (see
-    ``init`` for He-normal weights)."""
+    ``init`` for He-normal weights). ``layer_type`` builds each conv layer;
+    the int8 network (``models/quant.QuantPolicyCNN``) swaps it and keeps
+    this forward."""
+
+    layer_type = PositionBiasConv
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(
-            PositionBiasConv(k, c_in, c_out)
+            self.layer_type(k, c_in, c_out)
             for k, c_in, c_out in cfg.layer_shapes())
 
     def forward(self, planes: torch.Tensor) -> torch.Tensor:
