@@ -15,21 +15,30 @@ then, each phase failing the run on the first disagreement:
    S dihedral views fused with the expansion) at S = 1, 3, 8, against their
    plain PyTorch versions on the card, exactly, in bf16 and float32 at
    B = 1, 8, 37, 512, over random uint8 records, out-of-range players and
-   ranks 0..10; at S = 1 the sym kernel also equals the expansion kernel.
-   Both are timed with CUDA events beside their bounds.
+   ranks 0..10; also at the other rungs of the ladder (B = 32, 128; the
+   sym kernel at S = 8), at shapes whose S * B * 361 is not a multiple of 8
+   (B = 7 at S = 1, 5; B = 1 at S = 2: the output's last 16-byte vector is
+   ragged) and on a sliced input (``packed[1:]`` of 513 boards, at an odd
+   address); at S = 1 the sym kernel also equals the expansion kernel.
+   Both are timed with CUDA events beside their bounds: one call, and per
+   launch over 20 back-to-back launches.
 4. f32 path: ``policy_engine`` over the ``full`` config (12 layers x 128
    channels, bf16, random weights from a seed) answers bursts of concurrent
    single-board requests from 8 threads that land on every ladder rung.
    Every row is finite and normalised, bitwise equal to the direct forward
    at its rung, and within ``CROSS_RUNG_TOL`` of the same board's row at
-   the top rung; the expansion kernel's launches equal the engine's
-   forwards. Then, for the record, the direct forward's wall time per rung
-   and a torch.profiler breakdown of one top-rung forward by kernel group.
+   the top rung; so are 16 more draws of 64 boards, each through the direct
+   forward at every rung. The expansion kernel's launches equal the
+   engine's forwards. Then, for the record, the direct forward's wall time
+   per rung and a torch.profiler breakdown of one top-rung forward by
+   kernel group.
 5. variant path: ``policy_engine(variant="int8+sym")`` on ``full`` over a
    "grid net" (random weights snapped onto the int8 grid, sharp last-layer
    bias). Its tolerance gate passes at every rung; the same bursts as in 4;
-   the same row checks against the direct fused forward; the sym kernel's
-   launches equal the engine's forwards and the expansion kernel's stay 0.
+   the same row checks against the direct fused forward, within
+   ``GRID_NET_CROSS_RUNG_TOL`` across rungs (the bias makes the logits, and
+   so bf16's rounding of them, larger); the sym kernel's launches equal
+   the engine's forwards and the expansion kernel's stay 0.
    On the grid net int8+sym rows equal sym rows and int8 rows equal f32
    rows bitwise. Then wall time per rung and a profile of one top-rung
    fused forward (512 boards x 8 views).
@@ -68,16 +77,34 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor rate, for the compares
 KERNEL_BATCHES = (1, 8, 37, 512)
 SYMMETRIES = (1, 3, 8)
+# (batch, symmetries) the engines also launch with: the other ladder rungs
+RUNGS = ((32, 8), (128, 8))
+# (batch, symmetries) with S * B * 361 not a multiple of 8
+RAGGED = ((7, 1), (7, 5), (1, 2))
+SLICED = 512        # boards of packed[1:] of SLICED + 1: an odd address
+BACK_TO_BACK = 20   # launches between one pair of events, for per-launch ms
 # Burst sizes of the engine paths: each lands on one rung of the default
 # ladder (1, 8, 32, 128, 512) when it coalesces into one dispatch.
 BURSTS = (1, 5, 20, 100, 400, 3, 60, 250, 7, 30)
 THREADS = 8
-# A board's log-probs at one rung against the top rung: cuDNN may choose a
-# different convolution algorithm per batch size, which rounds differently
-# in bf16 through 12 layers. Held over points with p >= 1e-3. The same
-# tolerance holds two variants' rows against each other where cuDNN breaks
-# the bitwise grid-net identities.
+# A board's log-probs at one rung against the top rung, over points with
+# p >= 1e-3: cuDNN may choose a different convolution algorithm per batch
+# size (on an H100 it does for 8 or fewer boards through the convolutions:
+# rungs 1 and 8 of the plain forward, rung 1 of the 8-view one), and the
+# two round the bf16
+# logits differently, by up to about one bf16 spacing at the logits'
+# magnitude. Random He-normal weights give a nearly flat policy with logits
+# under 2 (spacing <= 2^-7). The same tolerance holds two variants' rows
+# against each other where cuDNN breaks the bitwise grid-net identities.
 CROSS_RUNG_TOL = 0.05
+# The grid net's N(0, 4) last-layer bias (largest |bias| 15.09 at SEED)
+# puts its larger logits in [8, 16), where bf16's spacing is 2^-4: two
+# spacings.
+GRID_NET_CROSS_RUNG_TOL = 2 * 2.0 ** -4
+# The cross-rung spread beyond the engine's rows: SPREAD_DRAWS draws of
+# SPREAD_BOARDS boards, each through the direct forward at every rung.
+SPREAD_DRAWS = 16
+SPREAD_BOARDS = 64
 F32_CARD_VS_CPU_TOL = 1e-4
 CARD_VS_CPU_BOARDS = 16
 
@@ -102,13 +129,35 @@ def random_records(rng, b, players=(1, 2), ranks=(1, 9)):
             rng.integers(ranks[0], ranks[1] + 1, size=b).astype(np.int32))
 
 
-def _sleep_cycles_per_ms() -> float:
+def sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per ms on this card."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     torch.cuda._sleep(10_000_000)
     end.record()
     end.synchronize()
     return 10_000_000 / start.elapsed_time(end)
+
+
+def device_ms(fn, launches: int, reps: int) -> float:
+    """Median device ms per launch of ``launches`` back-to-back calls of
+    ``fn`` between one pair of events, the stream held by a 2 ms sleep so
+    the host has queued them all before the first runs."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(sleep_cycles_per_ms() * 2.0)
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
 
 
 def time_ms(fn, runs: int = 60, warmup: int = 5) -> dict:
@@ -126,7 +175,7 @@ def time_ms(fn, runs: int = 60, warmup: int = 5) -> dict:
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(wall)
-    cycles = int(_sleep_cycles_per_ms() * (2 * wall_ms + 0.05))
+    cycles = int(sleep_cycles_per_ms() * (2 * wall_ms + 0.05))
     device = []
     for _ in range(runs):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -152,35 +201,54 @@ def expand_bound(b: int, out_bytes: int, s: int = 1) -> tuple[float, str]:
 
 
 def kernel_row(what: str, kernel_fn, plain_fn, b: int, s: int, dtype,
-               out_bytes: int, err: float) -> dict:
+               out_bytes: int, err: float, sliced: bool) -> dict:
     kernel = time_ms(kernel_fn)
+    launch_ms = device_ms(kernel_fn, BACK_TO_BACK, 10)
     plain = time_ms(plain_fn, runs=30)
     bound, bound_by = expand_bound(b, out_bytes, s)
     row = {"batch": b, "symmetries": s, "dtype": str(dtype).split(".")[-1],
-           "exact": True, "max_abs_err": err, "ms": kernel["ms"],
+           "sliced": sliced, "exact": True, "max_abs_err": err,
+           "ms": kernel["ms"], "launch_ms": launch_ms,
            "wall_ms": kernel["wall_ms"], "plain_ms": plain["ms"],
            "plain_wall_ms": plain["wall_ms"], "bound_ms": bound,
-           "bound_by": bound_by}
-    print(f"{what} B={b:4d} S={s} {row['dtype']:>8}: exact, "
-          f"{kernel['ms'] * 1e3:.2f} us device "
-          f"({kernel['wall_ms'] * 1e3:.1f} us wall), plain "
-          f"{plain['ms'] * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
-          f"({bound_by})", flush=True)
+           "bound_by": bound_by, "share_of_bound": bound / kernel["ms"]}
+    print(f"{what} B={b:4d} S={s} {row['dtype']:>8}"
+          f"{' sliced' if sliced else ''}: exact, "
+          f"{kernel['ms'] * 1e3:.2f} us device, {launch_ms * 1e3:.2f} us "
+          f"per launch of {BACK_TO_BACK} ({kernel['wall_ms'] * 1e3:.1f} us "
+          f"wall), plain {plain['ms'] * 1e3:.1f} us, bound "
+          f"{bound * 1e3:.2f} us ({bound_by}, "
+          f"{row['share_of_bound']:.0%})", flush=True)
     return row
 
 
-def kernel_inputs(rng, b):
-    packed, player, rank = random_records(rng, b, players=(1, 2),
+def kernel_inputs(rng, b, sliced=False):
+    """Random records for b boards on the card; ``sliced``: the last b of
+    b + 1, so that ``packed`` starts at an odd address."""
+    n = b + sliced
+    packed, player, rank = random_records(rng, n, players=(1, 2),
                                           ranks=(0, 10))
     odd = np.array([0, 3, -1, 255, 1, 2], np.int32)
-    player[: min(b, 6)] = odd[: min(b, 6)]
-    return [torch.from_numpy(a).cuda() for a in (packed, player, rank)]
+    player[: min(n, 6)] = odd[: min(n, 6)]
+    args = [torch.from_numpy(a).cuda()[n - b:] for a in (packed, player,
+                                                         rank)]
+    check(args[0].is_contiguous()
+          and args[0].data_ptr() % 2 == int(sliced),
+          f"input at B={b} (sliced {sliced}) contiguous, odd iff sliced")
+    return args
 
 
-def phase_kernel(rng) -> list[dict]:
+def phase_kernel(rng, extra) -> list[dict]:
+    """``extra`` draws the inputs of the shapes beyond KERNEL_BATCHES, so
+    that ``rng`` reaches the engine phases in the same state as without
+    them."""
     rows = []
-    for b in KERNEL_BATCHES:
-        args = kernel_inputs(rng, b)
+    cases = [(b, False, rng) for b in KERNEL_BATCHES]
+    cases += [(b, False, extra) for b, _ in RUNGS]
+    cases += [(b, False, extra) for b, s in RAGGED if s == 1]
+    cases += [(SLICED, True, extra)]
+    for b, sliced, gen in cases:
+        args = kernel_inputs(gen, b, sliced)
         for dtype, out_bytes in ((torch.bfloat16, 2), (torch.float32, 4)):
             got = cuda_expand.expand_planes_cuda(*args, dtype=dtype)
             want = plain_expand.expand_planes(*args, dtype=dtype)
@@ -188,21 +256,25 @@ def phase_kernel(rng) -> list[dict]:
             check(got.shape == want.shape == (b, 19, 19, 37)
                   and got.is_contiguous(), f"kernel output shape at B={b}")
             err = (got.float() - want.float()).abs().max().item()
-            check(torch.equal(got, want),
-                  f"kernel != plain at B={b} {dtype} (max-abs {err})")
+            check(torch.equal(got, want), f"kernel != plain at B={b} "
+                  f"{dtype} sliced {sliced} (max-abs {err})")
             rows.append(kernel_row(
                 "kernel", lambda: cuda_expand.expand_planes_cuda(
                     *args, dtype=dtype),
                 lambda: plain_expand.expand_planes(*args, dtype=dtype),
-                b, 1, dtype, out_bytes, err))
+                b, 1, dtype, out_bytes, err, sliced))
     return rows
 
 
-def phase_sym_kernel(rng) -> list[dict]:
+def phase_sym_kernel(rng, extra) -> list[dict]:
+    """``extra`` as for ``phase_kernel``."""
     rows = []
-    for b in KERNEL_BATCHES:
-        args = kernel_inputs(rng, b)
-        for s in SYMMETRIES:
+    cases = [(b, SYMMETRIES, False, rng) for b in KERNEL_BATCHES]
+    cases += [(b, (s,), False, extra) for b, s in RUNGS + RAGGED]
+    cases += [(SLICED, (1, 8), True, extra)]
+    for b, views, sliced, gen in cases:
+        args = kernel_inputs(gen, b, sliced)
+        for s in views:
             for dtype, out_bytes in ((torch.bfloat16, 2), (torch.float32, 4)):
                 got = cuda_expand.expand_planes_sym_cuda(*args, symmetries=s,
                                                          dtype=dtype)
@@ -214,7 +286,7 @@ def phase_sym_kernel(rng) -> list[dict]:
                       f"sym kernel output shape at B={b} S={s}")
                 err = (got.float() - want.float()).abs().max().item()
                 check(torch.equal(got, want), f"sym kernel != plain at "
-                      f"B={b} S={s} {dtype} (max-abs {err})")
+                      f"B={b} S={s} {dtype} sliced {sliced} (max-abs {err})")
                 if s == 1:
                     one = cuda_expand.expand_planes_cuda(*args, dtype=dtype)
                     torch.cuda.synchronize()
@@ -226,7 +298,7 @@ def phase_sym_kernel(rng) -> list[dict]:
                         *args, symmetries=s, dtype=dtype),
                     lambda: plain_expand.expand_planes_sym(
                         *args, symmetries=s, dtype=dtype),
-                    b, s, dtype, out_bytes, err))
+                    b, s, dtype, out_bytes, err, sliced))
     return rows
 
 
@@ -263,8 +335,7 @@ def run_bursts(engine, packed, player, rank):
     return futures
 
 
-def serving_boards(rng):
-    n = sum(BURSTS)
+def serving_boards(rng, n=sum(BURSTS)):
     return (rng.integers(0, 3, size=(n, 9, 19, 19), dtype=np.uint8),
             rng.integers(1, 3, size=n).astype(np.int32),
             rng.integers(1, 10, size=n).astype(np.int32))
@@ -310,10 +381,39 @@ def direct(forward, params, ladder, boards, idx, bucket):
     return np.concatenate(out)
 
 
-def check_rows(forward, params, ladder, boards, futures) -> float:
+def cross_rung_spread(forward, params, ladder, tol, label) -> dict:
+    """The cross-rung difference over SPREAD_DRAWS draws of SPREAD_BOARDS
+    boards each (generators of their own, seeded SEED + 100 + draw): per
+    rung below the top, the largest over the draws, and per draw the
+    largest over the rungs; every one within ``tol``."""
+    by_rung = {str(b): 0.0 for b in ladder.buckets[:-1]}
+    per_draw = []
+    for d in range(SPREAD_DRAWS):
+        boards = serving_boards(np.random.default_rng(SEED + 100 + d),
+                                SPREAD_BOARDS)
+        idx = np.arange(SPREAD_BOARDS)
+        top = direct(forward, params, ladder, boards, idx, ladder.max_bucket)
+        kept = np.exp(top) >= 1e-3
+        worst = 0.0
+        for bucket in ladder.buckets[:-1]:
+            at = direct(forward, params, ladder, boards, idx, bucket)
+            err = float(np.abs(at - top)[kept].max())
+            by_rung[str(bucket)] = max(by_rung[str(bucket)], err)
+            worst = max(worst, err)
+        per_draw.append(worst)
+    print(f"{label}: cross-rung max-abs over p >= 1e-3, {SPREAD_DRAWS} draws "
+          f"of {SPREAD_BOARDS} boards: per rung " + json.dumps(by_rung)
+          + f"; per draw min {min(per_draw):.3g} median "
+          f"{statistics.median(per_draw):.3g} max {max(per_draw):.3g} "
+          f"(tolerance {tol})", flush=True)
+    check(max(per_draw) <= tol, f"{label}: cross-rung spread")
+    return {"by_rung": by_rung, "per_draw": per_draw, "tolerance": tol}
+
+
+def check_rows(forward, params, ladder, boards, futures, tol) -> float:
     """Engine rows finite, normalised, bitwise equal to ``forward`` at
-    their rung and within CROSS_RUNG_TOL of the top rung; returns the
-    cross-rung max-abs."""
+    their rung and within ``tol`` of the top rung; returns the cross-rung
+    max-abs."""
     n = len(boards[0])
     rows = np.stack([f.result() for f in futures])
     buckets = np.array([f.bucket for f in futures])
@@ -333,8 +433,8 @@ def check_rows(forward, params, ladder, boards, futures) -> float:
     cross = float(np.abs(rows - top)[mask].max())
     print(f"engine rows bitwise equal to the direct forward at their rung; "
           f"max-abs vs the top rung over p >= 1e-3: {cross:.3g} "
-          f"(tolerance {CROSS_RUNG_TOL})", flush=True)
-    check(cross <= CROSS_RUNG_TOL, "rows across rungs")
+          f"(tolerance {tol})", flush=True)
+    check(cross <= tol, "rows across rungs")
     return cross
 
 
@@ -370,12 +470,16 @@ def phase_main_path(rng) -> dict:
           f"{stats['forwards']}")
     forward = make_log_prob_fn(cfg, device="cuda")
     ladder = engine.ladder
-    cross = check_rows(forward, model, ladder, boards, served["futures"])
+    cross = check_rows(forward, model, ladder, boards, served["futures"],
+                       CROSS_RUNG_TOL)
+    spread = cross_rung_spread(forward, model, ladder, CROSS_RUNG_TOL,
+                               "direct forward")
     per_rung = rung_walls(forward, model, ladder, boards, "direct forward")
     idx = np.arange(ladder.max_bucket) % len(boards[0])
     profile = profile_forward(forward, model, *(a[idx] for a in boards))
     return {"launches": served["launches"], "stats": stats,
-            "cross_rung": cross, "forward_wall_ms": per_rung,
+            "cross_rung": cross, "cross_rung_spread": spread,
+            "forward_wall_ms": per_rung,
             "profile": profile, "model": model,
             "boards": tuple(a[:64] for a in boards)}
 
@@ -403,6 +507,8 @@ def grid_net(cfg) -> policy_cnn.PolicyCNN:
               "quantize_params on the card != on the CPU")
     snapped = quant.dequantize_params(qmodel)
     bias = np.random.default_rng(SEED).normal(0.0, 4.0, size=(19, 19, 1))
+    check(np.abs(bias).max() < 16, "grid net bias under 16, as "
+          "GRID_NET_CROSS_RUNG_TOL assumes")
     with torch.no_grad():
         snapped.layers[-1].bias.copy_(torch.from_numpy(
             bias.astype(np.float32).transpose(2, 0, 1)))
@@ -469,7 +575,11 @@ def phase_variant_path(rng) -> dict:
     spec = variant_spec(cfg, "int8+sym", device="cuda")
     forward, qmodel = spec.forward, spec.prepare(model)
     ladder = engine.ladder
-    cross = check_rows(forward, qmodel, ladder, boards, served["futures"])
+    cross = check_rows(forward, qmodel, ladder, boards, served["futures"],
+                       GRID_NET_CROSS_RUNG_TOL)
+    spread = cross_rung_spread(forward, qmodel, ladder,
+                               GRID_NET_CROSS_RUNG_TOL,
+                               "fused int8+sym forward")
     identities = {
         "int8+sym vs sym": compare_variants(
             "int8+sym vs sym", forward, qmodel,
@@ -487,17 +597,16 @@ def phase_variant_path(rng) -> dict:
             "stats": stats, "gate_s": t_gate,
             "gate": {k: report[k] for k in ("verdict", "worst_top1",
                                             "worst_drift")},
-            "cross_rung": cross, "identities": identities,
+            "cross_rung": cross, "cross_rung_spread": spread,
+            "identities": identities,
             "forward_wall_ms": per_rung, "profile": profile, "model": model,
             "boards": tuple(a[:64] for a in boards)}
 
 
 def _kernel_group(name: str) -> str:
     lower = name.lower()
-    if "expand_planes_sym" in lower:
-        return "sym expand kernel"
-    if "expand_planes" in lower:
-        return "expand kernel"
+    if "expand_planes" in lower:  # one kernel body: plain, or gather + views
+        return "expansion kernel"
     if "memcpy htod" in lower:
         return "h2d copy"
     if "memcpy dtoh" in lower:
@@ -535,13 +644,13 @@ def profile_forward(forward, model, packed, player, rank, runs: int = 5):
         group = _kernel_group(evt.key)
         groups[group] = groups.get(group, 0.0) + ms
         kernels[evt.key[:100]] = kernels.get(evt.key[:100], 0.0) + ms
-    device_ms = sum(groups.values())
-    if device_ms == 0.0:
+    busy_ms = sum(groups.values())
+    if busy_ms == 0.0:
         print("profile: torch.profiler recorded no device time", flush=True)
         return None
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
-    out = {"batch": len(packed), "wall_ms": wall_ms, "device_ms": device_ms,
-           "device_busy_share": device_ms / wall_ms, "groups_ms": groups,
+    out = {"batch": len(packed), "wall_ms": wall_ms, "device_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms, "groups_ms": groups,
            "top_kernels_ms": top}
     print("profile of one forward: " + json.dumps(out), flush=True)
     return out
@@ -572,8 +681,9 @@ def kernel_entry(name, replaces, launches, rows, top) -> dict:
             "exact": all(r["exact"] for r in rows),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": top["ms"], "kernel_ms": top["ms"],
-            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": None,
+            "launch_ms": top["launch_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "share_of_bound": top["share_of_bound"], "library_ms": None,
             "shape": f"B={top['batch']} S={top['symmetries']} {top['dtype']}",
             "by_shape": rows}
 
@@ -597,8 +707,9 @@ def main() -> int:
         print(f"nvcc {name}: {log.strip()}", flush=True)
 
     rng = np.random.default_rng(SEED)
-    kernel_rows = phase_kernel(rng)
-    sym_rows = phase_sym_kernel(rng)
+    extra = np.random.default_rng(SEED + 1)
+    kernel_rows = phase_kernel(rng, extra)
+    sym_rows = phase_sym_kernel(rng, extra)
     path = phase_main_path(rng)
     var = phase_variant_path(rng)
     f32_err = phase_card_vs_cpu("plain forward", make_log_prob_fn,
@@ -609,7 +720,8 @@ def main() -> int:
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512
-                    and r["symmetries"] == s and r["dtype"] == "bfloat16")
+                    and r["symmetries"] == s and r["dtype"] == "bfloat16"
+                    and not r["sliced"])
 
     kernels = {"kernels": [
         kernel_entry("expand_planes", "deepgo_tpu/ops/pallas_expand.py:84",
@@ -622,11 +734,13 @@ def main() -> int:
         "card_vs_cpu_f32_max_abs": f32_err,
         "card_vs_cpu_fused_sym_f32_max_abs": sym_err,
         "f32_path": {"cross_rung_max_abs": path["cross_rung"],
+                     "cross_rung_spread": path["cross_rung_spread"],
                      "forward_wall_ms": path["forward_wall_ms"],
                      "profile": path["profile"], "engine": path["stats"]},
         "int8_sym_path": {k: var[k] for k in (
-            "gate", "gate_s", "cross_rung", "identities", "forward_wall_ms",
-            "profile", "expand_launches")} | {"engine": var["stats"]},
+            "gate", "gate_s", "cross_rung", "cross_rung_spread", "identities",
+            "forward_wall_ms", "profile", "expand_launches")}
+        | {"engine": var["stats"]},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,14 +1,17 @@
 // Packed record -> 37 binary model planes, on Hopper (sm_90a): the plain
-// expansion and the expansion fused with the dihedral-view gather.
+// expansion and the expansion fused with the dihedral-view gather, one
+// kernel body for both.
 //
 // Replaces the TPU kernels in deepgo_tpu/ops/pallas_expand.py:
-//   expand_planes_kernel      <- _expand_kernel      (launcher expand_planes_pallas)
-//   expand_planes_sym_kernel  <- _sym_expand_kernel  (launcher expand_planes_sym_pallas)
-// Both share one plane grammar, point_planes() below, as the two Pallas
-// kernels share _planes_from_packed, so the two cannot drift. The functions
-// are exactly deepgo_tpu/ops/expand.py::expand_planes and its plain PyTorch
-// port, deepgo_tpu_torch/ops/expand.py (expand_planes, expand_planes_sym),
-// for any uint8 record and any int32 player / rank:
+//   deepgo_expand_planes      <- _expand_kernel      (launcher expand_planes_pallas)
+//   deepgo_expand_planes_sym  <- _sym_expand_kernel  (launcher expand_planes_sym_pallas)
+// Both entry points run expand_planes_kernel; the plain expansion is its
+// one-view case without the gather (kGather = false). The plane grammar,
+// point_planes() below, is the single definition of the planes, as the two
+// Pallas kernels share _planes_from_packed. The functions are exactly
+// deepgo_tpu/ops/expand.py::expand_planes and its plain PyTorch port,
+// deepgo_tpu_torch/ops/expand.py (expand_planes, expand_planes_sym), for
+// any uint8 record and any int32 player / rank:
 //
 //   planes 0-2    empty, mine (stones == player), theirs (stones == 3 - player)
 //   planes 3-6    liberties == 1, 2, 3, >= 4
@@ -29,30 +32,51 @@
 // Plain, B = 512 bf16: 15.3 MB, about 4.6 us. Sym, B = 512, S = 8: the
 // board is read once for all views and 8 views are written, 111 MB in bf16
 // (about 33 us) and 220 MB in f32 (about 66 us). The work is a few integer
-// compares per output, so bytes bound both; at the serving shapes the
-// launch itself dominates the plain kernel.
+// compares per output and no products, so bytes bound both and tensor
+// cores have nothing to do here.
 //
-// Design of the plain kernel: one block per board, one thread per point
-// (384 threads, 361 active). A thread reads its point's 9 channel bytes
-// (coalesced across the threads of a channel), compares them once, and
-// writes its 37 planes into a shared-memory byte tile laid out as the
-// board's NHWC output. The block then stores the whole tile as one
-// contiguous run of 13,357 elements, writing 1.0 / 0.0 as bit patterns
-// (0x3F80 / 0x0000 for bf16), so no float arithmetic and no transpose pass
-// follow. Player and rank are read once per block.
+// Design. The output is S * B * 361 points of 37 planes, laid out flat:
+// point q = (k * B + b) * 361 + p is point p of view k of board b (row
+// k * B + b, symmetry-major, as the Pallas kernel and the XLA gather lay it
+// out); its source point is perm[k][p], or p without the gather. Each warp
+// owns a chunk of 32 consecutive points, and the grid has a warp for every
+// chunk, so all SMs work at any B and S (one block per board left most SMs
+// idle at B <= 37 and ran the S views of a board in series). A warp:
 //
-// Design of the sym kernel: one block per board as well. It stages the
-// board's 9 x 361 bytes into shared memory with coalesced loads, so device
-// memory is read once for all S views and not S times, and stages the first
-// S rows of the (8, 361) permutation table beside it. The table is read
-// through __ldg and kept in shared memory, not in __constant__ memory: the
-// 32 threads of a warp read 32 different entries, which constant memory
-// would serialise. Then, for each view k, thread p expands the point
-// perm[k][p] of the staged board into the byte tile, and the block stores
-// the tile contiguously at output row k * B + b (symmetry-major, as the
-// Pallas kernel and the XLA gather lay it out), with the same stores as
-// the plain kernel. Output offsets are 64-bit: at B = 512, S = 8 the output
-// holds 54.7M elements.
+// 1. Computes the 37 planes of its lane's point once, as one 64-bit mask,
+//    from the point's 9 channel bytes. The 9 loads and the player and rank
+//    loads go out together, the player choosing among the bytes only
+//    afterwards. Boards are read byte-wise, from L2 after the first view: the
+//    input may be a slice at an odd address. The permutation entry comes
+//    through __ldg, not __constant__ memory: the lanes read 32 different
+//    entries.
+// 2. Lays the 32 masks end to end as 37 words of 32 bits, by warp shuffles:
+//    no shared memory and no barrier, so every warp runs on its own.
+// 3. Stores the chunk, which is contiguous in the output, as 16-byte vectors
+//    (8 bf16 or 4 f32 planes, each taken from one word at a fixed offset),
+//    writing 1.0 as its bit pattern with one st.global.cs.v4 per vector: 512
+//    bytes per warp instruction, marked evict-first so that the lines
+//    stream out of L2 (at B = 512, S = 8 the output is twice L2's 50 MB,
+//    and the default write-back store took 11-13 % longer). 8 points x 37
+//    planes x 2 bytes = 592 bytes = 37 x 16 bytes, and 4 points make the
+//    same in f32, so a chunk of 32 points starts on a 16-byte boundary (the
+//    output comes from torch.empty) and holds whole vectors. Only the last
+//    vector of the output, when S * B * 361 is not a multiple of 8 (bf16)
+//    or 4 (f32), is written element by element.
+//
+// Point indices and every offset are 64-bit: a caller may pass tens of
+// thousands of boards (B = 512, S = 8 alone is 54.7M planes), and a grid too
+// large to launch walks its chunks with a grid stride.
+//
+// Timed against the alternatives on an NVIDIA H100 80GB HBM3 at 700 W, in
+// turns within one run, each slower at the top shapes (PERF.md holds the
+// times): a persistent grid whose warps stage each chunk in a
+// double-buffered shared tile and drain it with a TMA bulk copy
+// (cp.async.bulk, L2 evict-first hint; 7-11 % slower at S = 8, bf16), a
+// persistent grid of direct stores that issues the next chunk's loads
+// first, and the default write-back store. The one-block-per-board kernels
+// this replaces took 70.14 us (sym, B = 512, S = 8, bf16), 18.5-19.1 us
+// (sym, B = 1, 8, 37, S = 8) and 13.50 us (plain, B = 512, bf16).
 
 #include <cstdint>
 
@@ -64,132 +88,205 @@ constexpr int kPoints = 361;
 constexpr int kChannels = 9;
 constexpr int kBoardBytes = kChannels * kPoints;
 constexpr int kPlanes = 37;
-constexpr int kTile = kPoints * kPlanes;  // outputs per board
-constexpr int kThreads = 384;             // 12 warps cover the 361 points
 constexpr int kMaxSymmetries = 8;
+constexpr int kWarp = 32;  // points per chunk: a warp, one point a lane
+constexpr int kThreads = 128;
+constexpr int64_t kMaxBlocks = int64_t{1} << 24;
+constexpr int kVectorBytes = 16;
 
-// The 37 planes of one point into t[0..36]. ch0 points at the point's byte
-// in channel 0; channel c lies at ch0[c * kPoints], in device memory for the
-// plain kernel and in the staged shared-memory board for the sym kernel.
-__device__ __forceinline__ void point_planes(const uint8_t* ch0, int me,
-                                             int rk, uint8_t* t) {
-  const bool black = me == 1;
-  const int stones = ch0[0 * kPoints];
-  const int libs = ch0[1 * kPoints];
-  const int lib_after = ch0[(black ? 2 : 3) * kPoints];
-  const int kills = ch0[(black ? 4 : 5) * kPoints];
-  const int age = ch0[6 * kPoints];
-  const int ladder = ch0[(black ? 7 : 8) * kPoints];
-  const bool empty = stones == 0;
+static_assert(kWarp % 8 == 0, "chunks start on 592-byte groups");
+static_assert(kWarp * kPlanes / 32 <= 2 * kWarp, "a lane holds two words");
 
-  t[0] = empty;
-  t[1] = stones == me;
-  t[2] = stones == 3 - me;
-#pragma unroll
-  for (int i = 1; i <= 3; ++i) t[2 + i] = libs == i;
-  t[6] = libs >= 4;
-  t[7] = empty && lib_after == 0;
-#pragma unroll
-  for (int i = 1; i <= 5; ++i) t[7 + i] = lib_after == i;
-  t[13] = lib_after >= 6;
-#pragma unroll
-  for (int i = 1; i <= 6; ++i) t[13 + i] = kills == i;
-  t[20] = kills >= 7;
-#pragma unroll
-  for (int i = 1; i <= 5; ++i) t[20 + i] = age == i;
-  t[26] = ladder >= 1;
-  t[27] = 0;
-#pragma unroll
-  for (int i = 1; i <= 9; ++i) t[27 + i] = rk == i;
+// Plane `first + i - 1` for v == i in 1..n - 1, plane `first + n - 1` for
+// v >= n, none for v < 1.
+__device__ __forceinline__ uint64_t count_planes(int first, int v, int n) {
+  return v >= 1 ? uint64_t{1} << (first + min(v, n) - 1) : 0;
 }
 
-// The block's byte tile -> one board's contiguous NHWC output.
-template <typename T, T kOne>
-__device__ __forceinline__ void store_tile(const uint8_t* tile, T* dst) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    dst[i] = tile[i] ? kOne : T(0);
+// Plane `first + i - 1` for v == i in 1..n, none for v outside 1..n.
+__device__ __forceinline__ uint64_t value_planes(int first, int v, int n) {
+  return v >= 1 && v <= n ? uint64_t{1} << (first + v - 1) : 0;
+}
+
+// One point's inputs: its 9 channel bytes, the player to move and the rank.
+struct PointInputs {
+  int c[kChannels];
+  int me;
+  int rk;
+  bool valid;  // false past the end of the output
+};
+
+// The inputs of flat point q (row k * batch + b, point p), all 11 loads
+// issued together.
+template <bool kGather>
+__device__ __forceinline__ PointInputs load_point(
+    const uint8_t* __restrict__ packed, const int32_t* __restrict__ player,
+    const int32_t* __restrict__ rank, const int32_t* __restrict__ perm,
+    int64_t q, int64_t points, int batch) {
+  PointInputs in{};
+  in.valid = q < points;
+  if (in.valid) {
+    int64_t b = q / kPoints;
+    const int p = static_cast<int>(q - b * kPoints);
+    int k = 0;
+    while (b >= batch) {  // row k * batch + b; k < symmetries <= 8
+      b -= batch;
+      ++k;
+    }
+    const int src = kGather ? __ldg(perm + k * kPoints + p) : p;
+    const uint8_t* ch0 = packed + b * kBoardBytes + src;
+#pragma unroll
+    for (int i = 0; i < kChannels; ++i) in.c[i] = ch0[i * kPoints];
+    in.me = player[b];
+    in.rk = rank[b];
   }
+  return in;
 }
 
-template <typename T, T kOne>
+// The 37 planes of one point as bits 0..36.
+__device__ __forceinline__ uint64_t point_planes(const PointInputs& in) {
+  const int me = in.me;
+  const bool black = me == 1;
+  const int stones = in.c[0];
+  const int libs = in.c[1];
+  const int lib_after = black ? in.c[2] : in.c[3];
+  const int kills = black ? in.c[4] : in.c[5];
+  const int age = in.c[6];
+  const int ladder = black ? in.c[7] : in.c[8];
+  const bool empty = stones == 0;
+  return uint64_t{empty}                               // plane 0
+         | uint64_t{stones == me} << 1                 // mine
+         | uint64_t{stones == 3 - me} << 2             // theirs
+         | count_planes(3, libs, 4)                    // planes 3-6
+         | uint64_t{empty && lib_after == 0} << 7      // plane 7
+         | count_planes(8, lib_after, 6)               // planes 8-13
+         | count_planes(14, kills, 7)                  // planes 14-20
+         | value_planes(21, age, 5)                    // planes 21-25
+         | uint64_t{ladder >= 1} << 26                 // plane 26; 27 is 0
+         | value_planes(28, in.rk, 9);                 // planes 28-36
+}
+
+// 1.0 as the bit pattern of T: bf16 (uint16_t) or float32 (uint32_t).
+template <typename T>
+constexpr T kOne = sizeof(T) == 2 ? T(0x3F80) : T(0x3F800000u);
+
+// 16 bytes of planes, element i = 1.0 if bit i of `bits` (16 / sizeof(T)
+// bits, nothing above them) is set, else 0.0.
+template <typename T>
+__device__ __forceinline__ uint4 planes_vector(uint32_t bits) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (sizeof(T) == 2) {
+      // bits 2j and 2j + 1 to bits 0 and 16, then each to 0x3F80
+      w[j] = ((bits >> (2 * j)) * 0x8001u & 0x10001u) * kOne<T>;
+    } else {
+      w[j] = (bits >> j & 1u) * kOne<T>;
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T, bool kGather>
 __global__ void __launch_bounds__(kThreads)
 expand_planes_kernel(const uint8_t* __restrict__ packed,
                      const int32_t* __restrict__ player,
                      const int32_t* __restrict__ rank,
-                     T* __restrict__ out) {
-  __shared__ uint8_t tile[kTile];
-  const int64_t b = blockIdx.x;
-  const int p = threadIdx.x;
-  const int me = player[b];
-  const int rk = rank[b];
+                     const int32_t* __restrict__ perm,
+                     T* __restrict__ out, int batch, int symmetries) {
+  constexpr int kVec = kVectorBytes / sizeof(T);    // planes per vector
+  constexpr int kVecs = kWarp * kPlanes / kVec;      // vectors per chunk
+  constexpr int kPerWord = 32 / kVec;                // vectors per word
+  const int lane = threadIdx.x % kWarp;
+  const int64_t points = int64_t{symmetries} * batch * kPoints;
+  const int64_t stride = int64_t{gridDim.x} * kThreads;
+  for (int64_t q0 = int64_t{blockIdx.x} * kThreads + threadIdx.x - lane;
+       q0 < points; q0 += stride) {
+    // The mask of point q0 + lane (0 past the end).
+    const PointInputs in = load_point<kGather>(packed, player, rank, perm,
+                                               q0 + lane, points, batch);
+    const uint64_t m = in.valid ? point_planes(in) : 0;
 
-  if (p < kPoints) {
-    point_planes(packed + b * kBoardBytes + p, me, rk, tile + p * kPlanes);
+    // The chunk's 32 x 37 plane bits, end to end, as 37 words of 32 bits:
+    // lane l holds word l in w0 and, for l < 5, word 32 + l in w1. Word w
+    // starts at bit w * 32 % 37 of point w * 32 / 37's mask and may run into
+    // the next point's (a lane index past 31 wraps, and then reads bits the
+    // word does not keep).
+    auto word = [m](int w) {
+      const int pt = w * 32 / kPlanes;
+      const int bit = w * 32 - pt * kPlanes;
+      const uint64_t lo = __shfl_sync(~0u, m, pt);
+      const uint64_t hi = __shfl_sync(~0u, m, pt + 1);
+      return static_cast<uint32_t>(lo >> bit | hi << (kPlanes - bit));
+    };
+    const uint32_t w0 = word(lane);
+    const uint32_t w1 = word(kWarp + lane);
+
+    // The chunk's planes, contiguous from out + q0 * 37, as 16-byte
+    // vectors; vector v is planes v * kVec .. v * kVec + kVec - 1, the bits
+    // of word v / kPerWord from bit v % kPerWord * kVec.
+    const int n = static_cast<int>(points - q0 < kWarp ? points - q0 : kWarp) *
+                  kPlanes;
+    T* dst = out + q0 * kPlanes;
+#pragma unroll
+    for (int i = 0; i * kWarp < kVecs; ++i) {
+      const int v = i * kWarp + lane;
+      // whether v's word is in w1 is the same for every lane at a given i
+      const uint32_t word_v = __shfl_sync(
+          ~0u, i * kWarp / kPerWord >= kWarp ? w1 : w0, v / kPerWord);
+      const uint32_t bits =
+          word_v >> (v % kPerWord * kVec) & ((1u << kVec) - 1);
+      const int e = v * kVec;
+      if (e + kVec <= n) {
+        __stcs(reinterpret_cast<uint4*>(dst + e), planes_vector<T>(bits));
+      } else {  // the output's ragged end
+        for (int j = 0; e + j < n; ++j) {
+          dst[e + j] = (bits >> j) & 1 ? kOne<T> : T(0);
+        }
+      }
+    }
   }
-  __syncthreads();
-  store_tile<T, kOne>(tile, out + b * kTile);
 }
 
-template <typename T, T kOne>
-__global__ void __launch_bounds__(kThreads)
-expand_planes_sym_kernel(const uint8_t* __restrict__ packed,
-                         const int32_t* __restrict__ player,
-                         const int32_t* __restrict__ rank,
-                         const int32_t* __restrict__ perm,
-                         T* __restrict__ out, int batch, int symmetries) {
-  __shared__ uint8_t board[kBoardBytes];
-  __shared__ int16_t view_perm[kMaxSymmetries * kPoints];
-  __shared__ uint8_t tile[kTile];
-  const int64_t b = blockIdx.x;
-  const int p = threadIdx.x;
-  const int me = player[b];
-  const int rk = rank[b];
-
-  const uint8_t* src = packed + b * kBoardBytes;
-  for (int i = p; i < kBoardBytes; i += kThreads) board[i] = src[i];
-  for (int i = p; i < symmetries * kPoints; i += kThreads) {
-    view_perm[i] = static_cast<int16_t>(__ldg(perm + i));
-  }
-  __syncthreads();
-
-  for (int k = 0; k < symmetries; ++k) {
-    if (p < kPoints) {
-      point_planes(board + view_perm[k * kPoints + p], me, rk,
-                   tile + p * kPlanes);
-    }
-    __syncthreads();
-    store_tile<T, kOne>(tile, out + (static_cast<int64_t>(k) * batch + b) *
-                                        kTile);
-    __syncthreads();  // the next view overwrites the tile
-  }
+template <typename T, bool kGather>
+int launch(const void* packed, const void* player, const void* rank,
+           const void* perm, void* out, int batch, int symmetries,
+           void* stream) {
+  const int64_t chunks =
+      (int64_t{symmetries} * batch * kPoints + kWarp - 1) / kWarp;
+  const int64_t blocks = (chunks + kThreads / kWarp - 1) / (kThreads / kWarp);
+  const int grid = static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  expand_planes_kernel<T, kGather>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(packed),
+          static_cast<const int32_t*>(player),
+          static_cast<const int32_t*>(rank),
+          static_cast<const int32_t*>(perm), static_cast<T*>(out), batch,
+          symmetries);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the expansion of `batch` boards on `stream`.
-//   packed: (batch, 9, 19, 19) uint8, contiguous
+//   packed: (batch, 9, 19, 19) uint8, contiguous, at any address
 //   player, rank: (batch,) int32
-//   out: (batch, 19, 19, 37), contiguous, bf16 (out_bytes == 2) or
-//        float32 (out_bytes == 4)
+//   out: (batch, 19, 19, 37), contiguous and 16-byte aligned, bf16
+//        (out_bytes == 2) or float32 (out_bytes == 4)
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int deepgo_expand_planes(const void* packed, const void* player,
                                     const void* rank, void* out, int batch,
                                     int out_bytes, void* stream) {
   if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* in = static_cast<const uint8_t*>(packed);
-  const auto* pl = static_cast<const int32_t*>(player);
-  const auto* rk = static_cast<const int32_t*>(rank);
-  auto s = static_cast<cudaStream_t>(stream);
   if (out_bytes == 2) {
-    expand_planes_kernel<uint16_t, uint16_t{0x3F80}><<<batch, kThreads, 0, s>>>(
-        in, pl, rk, static_cast<uint16_t*>(out));
-  } else if (out_bytes == 4) {
-    expand_planes_kernel<uint32_t, 0x3F800000u><<<batch, kThreads, 0, s>>>(
-        in, pl, rk, static_cast<uint32_t*>(out));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<uint16_t, false>(packed, player, rank, nullptr, out, batch,
+                                   1, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (out_bytes == 4) {
+    return launch<uint32_t, false>(packed, player, rank, nullptr, out, batch,
+                                   1, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches the fused gather + expansion of `symmetries` dihedral views of
@@ -197,8 +294,9 @@ extern "C" int deepgo_expand_planes(const void* packed, const void* player,
 //   packed, player, rank: as for deepgo_expand_planes
 //   perm: (>= symmetries, 361) int32 gather table, entries in [0, 361):
 //         view k of a board is flat[:, perm[k, p]] at point p
-//   out: (symmetries * batch, 19, 19, 37), contiguous, view k of board b at
-//        row k * batch + b; bf16 (out_bytes == 2) or float32 (out_bytes == 4)
+//   out: (symmetries * batch, 19, 19, 37), contiguous and 16-byte aligned,
+//        view k of board b at row k * batch + b; bf16 (out_bytes == 2) or
+//        float32 (out_bytes == 4)
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int deepgo_expand_planes_sym(const void* packed, const void* player,
                                         const void* rank, const void* perm,
@@ -207,23 +305,13 @@ extern "C" int deepgo_expand_planes_sym(const void* packed, const void* player,
   if (batch < 1 || symmetries < 1 || symmetries > kMaxSymmetries) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* in = static_cast<const uint8_t*>(packed);
-  const auto* pl = static_cast<const int32_t*>(player);
-  const auto* rk = static_cast<const int32_t*>(rank);
-  const auto* pm = static_cast<const int32_t*>(perm);
-  auto s = static_cast<cudaStream_t>(stream);
   if (out_bytes == 2) {
-    expand_planes_sym_kernel<uint16_t, uint16_t{0x3F80}>
-        <<<batch, kThreads, 0, s>>>(in, pl, rk, pm,
-                                    static_cast<uint16_t*>(out), batch,
-                                    symmetries);
-  } else if (out_bytes == 4) {
-    expand_planes_sym_kernel<uint32_t, 0x3F800000u>
-        <<<batch, kThreads, 0, s>>>(in, pl, rk, pm,
-                                    static_cast<uint32_t*>(out), batch,
-                                    symmetries);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<uint16_t, true>(packed, player, rank, perm, out, batch,
+                                  symmetries, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (out_bytes == 4) {
+    return launch<uint32_t, true>(packed, player, rank, perm, out, batch,
+                                  symmetries, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

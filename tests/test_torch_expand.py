@@ -179,15 +179,17 @@ def test_build_without_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
 def test_cuda_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for b in (1, 8, 37):
-        packed, player, rank = _inputs(b, b, players=(0, 3), ranks=(0, 10))
+    # B = 1, 7, 37: B * 361 * 37 planes is not a whole number of 16-byte
+    # vectors, so the last one is ragged; "sliced" starts at an odd address
+    for b, sliced in ((1, False), (7, False), (8, False), (37, False),
+                      (37, True)):
+        packed, player, rank = _inputs(b + sliced, b, players=(0, 3),
+                                       ranks=(0, 10))
+        args = [torch.from_numpy(a)[int(sliced):]
+                for a in (packed, player, rank)]
         for tdt, _ in DTYPES.values():
-            want = plain.expand_planes(torch.from_numpy(packed),
-                                       torch.from_numpy(player),
-                                       torch.from_numpy(rank), dtype=tdt)
-            got = expand_planes(torch.from_numpy(packed).cuda(),
-                                torch.from_numpy(player).cuda(),
-                                torch.from_numpy(rank).cuda(), dtype=tdt)
+            want = plain.expand_planes(*args, dtype=tdt)
+            got = expand_planes(*(a.cuda() for a in args), dtype=tdt)
             torch.cuda.synchronize()
-            assert torch.equal(got.cpu(), want), (b, tdt)
+            assert torch.equal(got.cpu(), want), (b, sliced, tdt)
     assert isinstance(cuda_expand._kernel(), ctypes._CFuncPtr)

@@ -147,8 +147,12 @@ def test_rows_bitwise_equal_direct_forward_at_their_rung():
         assert np.array_equal(row, direct), (i, bucket)
 
 
-def slow_forward(delay):
+def slow_forward(delay, entered=None):
+    """A forward that takes ``delay`` seconds; it sets ``entered`` (a
+    threading.Event) as it starts."""
     def forward(params, packed, player, rank):
+        if entered is not None:
+            entered.set()
         time.sleep(delay)
         return np.zeros((len(packed), 361), np.float32)
 
@@ -156,11 +160,13 @@ def slow_forward(delay):
 
 
 def test_close_without_drain_fails_pending_futures():
-    engine = InferenceEngine(slow_forward(0.3), None, config=EngineConfig(
-        buckets=(1,), max_wait_ms=0.0))
+    entered = threading.Event()
+    engine = InferenceEngine(slow_forward(0.3, entered), None,
+                             config=EngineConfig(buckets=(1,),
+                                                 max_wait_ms=0.0))
     packed, player, rank = boards(4)
     futures = [engine.submit(packed[i], player[i], rank[i]) for i in range(4)]
-    time.sleep(0.05)  # the first request is inside the slow forward
+    assert entered.wait(timeout=30)  # the first request is in the forward
     engine.close(drain=False)
     assert all(f.done() for f in futures)
     failed = [f for f in futures if f.exception() is not None]
@@ -230,10 +236,12 @@ def test_expired_request_times_out():
 
 def test_full_queue_pushes_back():
     packed, _, _ = boards(1)
-    with InferenceEngine(slow_forward(0.3), None, config=EngineConfig(
+    entered = threading.Event()
+    with InferenceEngine(slow_forward(0.3, entered), None, config=EngineConfig(
             buckets=(1,), max_wait_ms=0.0, max_queue=2)) as engine:
         engine.submit(packed[0], 1, 1)
-        time.sleep(0.05)  # dispatcher holds the first; the queue is empty
+        # the dispatcher holds the first; the queue is empty
+        assert entered.wait(timeout=30)
         engine.submit(packed[0], 1, 1, block=False)
         engine.submit(packed[0], 1, 1, block=False)
         with pytest.raises(EngineBusy):

@@ -272,16 +272,19 @@ def test_reset_launches_zeroes_both_counts(monkeypatch):
 def test_sym_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for b in (1, 8, 37):
-        args = [torch.from_numpy(a) for a in _sym_inputs(min(b, 6), b)]
-        for s in (1, 3, 8):
-            for tdt, _ in DTYPES.values():
-                want = plain.expand_planes_sym(*args, symmetries=s,
-                                               dtype=tdt)
-                got = expand_planes_sym(*(a.cuda() for a in args),
-                                        symmetries=s, dtype=tdt)
-                torch.cuda.synchronize()
-                assert torch.equal(got.cpu(), want), (b, s, tdt)
+    # S * B * 361 * 37 planes not a whole number of 16-byte vectors at
+    # B = 1, 7, 37 for odd S (and B = 1, S = 2): the last one is ragged
+    cases = [(b, s) for b in (1, 8, 37) for s in (1, 3, 8)]
+    cases += [(7, 1), (7, 5), (1, 2)]
+    for b, s in cases:
+        args = [torch.from_numpy(np.resize(a, (b,) + a.shape[1:]))
+                for a in _sym_inputs(min(b, 6), b)]
+        for tdt, _ in DTYPES.values():
+            want = plain.expand_planes_sym(*args, symmetries=s, dtype=tdt)
+            got = expand_planes_sym(*(a.cuda() for a in args),
+                                    symmetries=s, dtype=tdt)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (b, s, tdt)
 
 
 # -- quantization: bitwise against JAX, the exp2 finding --------------------
