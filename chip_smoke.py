@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's policy serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit:
@@ -15,7 +15,8 @@ then, each phase failing the run on the first disagreement:
    S dihedral views fused with the expansion) at S = 1, 3, 8, against their
    plain PyTorch versions on the card, exactly, in bf16 and float32 at
    B = 1, 8, 37, 512, over random uint8 records, out-of-range players and
-   ranks 0..10; also at the other rungs of the ladder (B = 32, 128; the
+   ranks 0..10; also at the train steps' batches (B = 256, 1024, the
+   expansion kernel), at the other rungs of the ladder (B = 32, 128; the
    sym kernel at S = 8), at shapes whose S * B * 361 is not a multiple of 8
    (B = 7 at S = 1, 5; B = 1 at S = 2: the output's last 16-byte vector is
    ragged) and on a sliced input (``packed[1:]`` of 513 boards, at an odd
@@ -45,32 +46,65 @@ then, each phase failing the run on the first disagreement:
 6. card vs CPU: the float32 plain forward and the float32 fused sym forward
    on the card (TF32 off) against the CPU, which the CPU tests tie to the
    JAX package: max-abs <= 1e-4.
+7. training path: a seeded synthetic split (100 games x 100 positions for
+   train, 10 x 100 for validation, targets from a Zipf law over 40 points)
+   written with the port's DatasetWriter into a temporary directory, then
+   ``Experiment(..., device="cuda").run(60)`` on ``full`` (bf16, SGD at
+   rate 0.005, B = 256, K = 10 steps per call, loader threads with device
+   prefetch, nibble wire by "auto", validation of 512 positions at steps
+   30 and 60, keep_checkpoints=1). Every loss is finite, the final EWMA is
+   below the first window's mean, the expansion kernel launched once per
+   train step and per eval batch (sym kernel 0), retention kept the newest
+   and the best checkpoint, and the newest reloads bitwise and continues.
+   One K = 10 call on a fixed batch drives its loss down. A float32 step
+   at B = 64 on the card (TF32 off) matches the CPU's within 1e-5 (loss
+   and every updated parameter). A child process in deterministic mode
+   (``torch.use_deterministic_algorithms``, cuDNN deterministic,
+   ``CUBLAS_WORKSPACE_CONFIG``, set before CUDA starts) holds a 40-step
+   run equal to 20 + save + load + 20 bitwise, and the loader's
+   side-stream prefetch (device_prefetch=2) to the inline copy's losses
+   bitwise. For the record: ms per step and samples/s at B = 256 and 1024,
+   one step and K = 10 per call, beside the FLOP bound; the same at
+   B = 256 in deterministic mode; a torch.profiler breakdown of one
+   B = 256 step by kernel group.
 
 The last lines are a ``summary:`` JSON line of the paths' checks and
-timings, the card line from nvidia-smi, one ``kernels`` JSON object, and
-``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
-result.
+timings, the card line from nvidia-smi, one ``kernels`` JSON object (the
+expansion kernel's launches by path), and ``{"ok": true, "device":
+{...}}``. Without CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
+from deepgo_tpu_torch.data.dataset import DatasetWriter, GoDataset
+from deepgo_tpu_torch.data.loader import (AsyncLoader, make_step_batch,
+                                          to_device)
+from deepgo_tpu_torch.experiments import checkpoint as ckpt
+from deepgo_tpu_torch.experiments.experiment import (Experiment,
+                                                     ExperimentConfig)
 from deepgo_tpu_torch.models import policy_cnn, quant
 from deepgo_tpu_torch.models.serving import make_log_prob_fn
 from deepgo_tpu_torch.ops import _build, cuda_expand
 from deepgo_tpu_torch.ops import expand as plain_expand
 from deepgo_tpu_torch.serving import (EngineConfig, policy_engine,
                                       variant_spec, verify_variant)
+from deepgo_tpu_torch.training import (make_train_step, make_train_step_many,
+                                       sgd)
+from deepgo_tpu_torch.utils.metrics import read_jsonl
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
@@ -81,6 +115,7 @@ SYMMETRIES = (1, 3, 8)
 RUNGS = ((32, 8), (128, 8))
 # (batch, symmetries) with S * B * 361 not a multiple of 8
 RAGGED = ((7, 1), (7, 5), (1, 2))
+TRAIN_BATCHES = (256, 1024)  # the expansion kernel at the train steps' B
 SLICED = 512        # boards of packed[1:] of SLICED + 1: an odd address
 BACK_TO_BACK = 20   # launches between one pair of events, for per-launch ms
 # Burst sizes of the engine paths: each lands on one rung of the default
@@ -107,6 +142,29 @@ SPREAD_DRAWS = 16
 SPREAD_BOARDS = 64
 F32_CARD_VS_CPU_TOL = 1e-4
 CARD_VS_CPU_BOARDS = 16
+# Phase 7, the training path. The synthetic split: games x positions of
+# random records whose targets follow a Zipf law over TARGET_POINTS fixed
+# points (entropy about 2.9 nats, against ln 361 = 5.89 for a flat policy).
+SPLIT_GAMES = {"train": 100, "validation": 10}
+GAME_POSITIONS = 100
+TARGET_POINTS = 40
+# Plain SGD (no momentum), the reference's optimizer. At 0.05 and 0.01 the
+# full net's loss on a fixed batch jumps back up within ten steps; at 0.005
+# it falls at every step.
+TRAIN_RATE = 0.005
+TRAIN_STEPS = 60
+TRAIN_RUN = dict(      # the full config through Experiment.run
+    name="chip-smoke", num_layers=12, channels=128, compute_dtype="bfloat16",
+    batch_size=256, rate=TRAIN_RATE, steps_per_call=10, print_interval=10,
+    validation_interval=30, validation_size=512, keep_checkpoints=1,
+    seed=SEED, train_split="train", validation_split="validation",
+    test_split="validation")
+TIMED = ((256, 1), (256, 10), (1024, 1), (1024, 10))  # (batch, K) per call
+STEP_CARD_VS_CPU_TOL = 1e-5
+STEP_CARD_VS_CPU_BATCH = 64
+RESUME_STEPS = 40      # deterministic resume: 40 == 20, save, load, 20
+H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (NVIDIA data sheet)
+DEVICE = "cuda"            # phase 7's device
 
 
 def check(ok: bool, what: str) -> None:
@@ -247,6 +305,7 @@ def phase_kernel(rng, extra) -> list[dict]:
     cases += [(b, False, extra) for b, _ in RUNGS]
     cases += [(b, False, extra) for b, s in RAGGED if s == 1]
     cases += [(SLICED, True, extra)]
+    cases += [(b, False, extra) for b in TRAIN_BATCHES]
     for b, sliced, gen in cases:
         args = kernel_inputs(gen, b, sliced)
         for dtype, out_bytes in ((torch.bfloat16, 2), (torch.float32, 4)):
@@ -674,10 +733,425 @@ def phase_card_vs_cpu(label, make_forward, model, boards) -> float:
     return err
 
 
-def kernel_entry(name, replaces, launches, rows, top) -> dict:
+def write_split(root: str) -> int:
+    """The seeded synthetic splits of phase 7, written with the port's
+    DatasetWriter; returns their bytes on disk."""
+    rng = np.random.default_rng(SEED + 7)
+    points = rng.permutation(361)[:TARGET_POINTS]
+    weights = 1.0 / np.arange(1, TARGET_POINTS + 1)
+    weights /= weights.sum()
+    size = 0
+    for split, games in SPLIT_GAMES.items():
+        writer = DatasetWriter(os.path.join(root, split))
+        for g in range(games):
+            packed, player, rank = random_records(rng, GAME_POSITIONS)
+            target = points[rng.choice(TARGET_POINTS, GAME_POSITIONS,
+                                       p=weights)]
+            meta = np.stack([player, target // 19, target % 19, rank, rank,
+                             np.zeros_like(player)], axis=1)
+            writer.add_game(f"{split}-{g:03d}", packed, meta)
+        check(writer.finalize() == games * GAME_POSITIONS, f"{split} split")
+        size += os.path.getsize(os.path.join(root, split, "planes.bin"))
+    return size
+
+
+def train_config(root: str, **overrides) -> ExperimentConfig:
+    return ExperimentConfig(**{**TRAIN_RUN, "data_root": root,
+                               "run_dir": os.path.join(root, "runs"),
+                               **overrides})
+
+
+def record_losses(exp: Experiment) -> list:
+    """Wrap the experiment's step functions so that every call's losses
+    (device tensors, never read back here) land in the returned list."""
+    losses = []
+
+    def recording(step):
+        def wrapped(model, opt_state, batch):
+            model, opt_state, loss = step(model, opt_state, batch)
+            losses.append(loss)
+            return model, opt_state, loss
+        return wrapped
+
+    exp.train_step = recording(exp.train_step)
+    exp.train_step_many = recording(exp.train_step_many)
+    return losses
+
+
+def same_state(a: Experiment, b: Experiment) -> bool:
+    """Every parameter and optimizer leaf of two experiments bitwise."""
+    return all(torch.equal(x, y) for x, y in zip(
+        a.model.state_dict().values(), b.model.state_dict().values())) and \
+        torch.equal(a.opt_state["rate"], b.opt_state["rate"])
+
+
+def phase_train_run(root: str) -> dict:
+    """``Experiment.run`` on ``full`` through the loader threads, the
+    nibble wire and the expansion kernel; then a reload that continues."""
+    exp = Experiment(train_config(root), run_id="train", device=DEVICE)
+    exp.init()
+    check(exp.wire == "nibble" and exp._steps_per_call() == 10,
+          "auto wire is nibble and K is print_interval on cuda")
+    losses = record_losses(exp)
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    summary = exp.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, sym_launches = cuda_expand.launches, cuda_expand.sym_launches
+    values = torch.cat([loss.reshape(-1) for loss in losses]).cpu().numpy()
+    check(len(values) == TRAIN_STEPS and bool(np.isfinite(values).all()),
+          f"{TRAIN_STEPS} finite losses")
+    first = float(values[:TRAIN_RUN["print_interval"]].mean())
+    print(f"train run: {TRAIN_STEPS} steps of B={TRAIN_RUN['batch_size']} in "
+          f"{run_s:.2f} s (validation and checkpoints included); first "
+          f"window mean {first:.4f}, final EWMA {exp.ewma:.4f}; losses "
+          + json.dumps([round(float(v), 4) for v in values]), flush=True)
+    check(exp.ewma < first, "the EWMA falls below the first window's mean")
+    records = read_jsonl(os.path.join(exp.run_path, "metrics.jsonl"))
+    vals = [r for r in records if r["kind"] == "validation"]
+    check([r["step"] for r in vals] == [30, 60]
+          and all(r["n"] == TRAIN_RUN["validation_size"] for r in vals),
+          "validation at steps 30 and 60 over 512 positions")
+    eval_batches = len(vals) * math.ceil(TRAIN_RUN["validation_size"]
+                                         / TRAIN_RUN["batch_size"])
+    print(f"train run: expansion kernel launched {launches} times for "
+          f"{TRAIN_STEPS} train steps and {eval_batches} eval batches; sym "
+          f"kernel {sym_launches}", flush=True)
+    check(launches == TRAIN_STEPS + eval_batches and sym_launches == 0,
+          f"expansion launches {launches} != {TRAIN_STEPS} steps + "
+          f"{eval_batches} eval batches, or sym launches {sym_launches}")
+    best = min(exp.validation_history, key=lambda r: r["cost"])["step"]
+    kept = {s for s, _ in ckpt.list_checkpoints(exp.run_path)}
+    check(kept == {TRAIN_STEPS, best}, f"retention kept {sorted(kept)}, "
+          f"want the newest ({TRAIN_STEPS}) and the best ({best})")
+    again = Experiment.load(ckpt.find_latest_valid(exp.run_path),
+                            device=DEVICE)
+    check(again.step == TRAIN_STEPS and again.ewma == exp.ewma
+          and same_state(again, exp), "the checkpoint reloads bitwise")
+    again.run(10)
+    check(again.step == TRAIN_STEPS + 10 and math.isfinite(again.ewma),
+          "the reloaded run continues")
+    return {"launches": launches, "sym_launches": sym_launches,
+            "eval_batches": eval_batches, "run_s": run_s,
+            "first_window_mean": first, "final_ewma": exp.ewma,
+            "validation": vals, "continued_ewma": again.ewma,
+            "samples_per_sec": summary["samples_per_sec"]}
+
+
+def fixed_superbatch(root: str, b: int, k: int, device) -> dict:
+    """One step-indexed batch of b positions (nibble wire), repeated k
+    times on a leading axis (k = 0: the batch itself), on ``device``."""
+    one = make_step_batch(GoDataset(root, "train"), SEED, 0, b,
+                          wire="nibble")
+    if k:
+        one = {n: np.stack([v] * k) for n, v in one.items()}
+    return to_device(one, device)
+
+
+def fresh_model(cfg=None, device=None) -> policy_cnn.PolicyCNN:
+    return policy_cnn.init(torch.Generator().manual_seed(SEED),
+                           cfg or policy_cnn.CONFIGS["full"],
+                           device=device or DEVICE)
+
+
+def phase_fixed_batch(root: str) -> list:
+    """One K = 10 call on a fixed batch drives its loss down."""
+    cfg = policy_cnn.CONFIGS["full"]
+    opt = sgd(TRAIN_RATE)
+    model = fresh_model()
+    step = make_train_step_many(cfg, opt, wire="nibble")
+    _, _, losses = step(model, opt.init(model),
+                        fixed_superbatch(root, TRAIN_RUN["batch_size"], 10,
+                                         DEVICE))
+    values = losses.cpu().numpy().tolist()
+    print("fixed batch, one K=10 call: losses " + json.dumps(
+        [round(v, 4) for v in values]), flush=True)
+    check(all(math.isfinite(v) for v in values) and values[-1] < values[0],
+          "losses fall on a fixed batch")
+    return values
+
+
+def step_flops(cfg, b: int) -> float:
+    """A train step's convolution FLOPs: forward, data gradient and weight
+    gradient, each 2 * k * k * c_in * c_out per output point and board."""
+    fwd = sum(2 * k * k * c_in * c_out * 361
+              for k, c_in, c_out in cfg.layer_shapes())
+    return 3.0 * fwd * b
+
+
+def time_train_steps(root: str, timed=TIMED) -> list:
+    """Device and wall ms per step of the full bf16 step on a resident
+    batch, for each (batch, K) of ``timed``, beside the FLOP bound. The
+    device time is the events' elapsed time around one call: where the host
+    cannot queue a call's kernels ahead of the card (the launch queue holds
+    about a thousand), it includes the card's idle gaps."""
+    cfg = policy_cnn.CONFIGS["full"]
+    opt = sgd(TRAIN_RATE)
+    rows = []
+    for b, k in timed:
+        model = fresh_model()
+        state = [opt.init(model)]
+        if k == 1:
+            step = make_train_step(cfg, opt, wire="nibble")
+            batch = fixed_superbatch(root, b, 0, DEVICE)
+        else:
+            step = make_train_step_many(cfg, opt, wire="nibble")
+            batch = fixed_superbatch(root, b, k, DEVICE)
+
+        def call():
+            _, state[0], _ = step(model, state[0], batch)
+
+        t = time_ms(call, runs=20, warmup=3)
+        ms, wall = t["ms"] / k, t["wall_ms"] / k
+        bound = step_flops(cfg, b) / H100_BF16_FLOPS * 1e3
+        rows.append({"batch": b, "k": k, "device_elapsed_ms_per_step": ms,
+                     "wall_ms_per_step": wall,
+                     "samples_per_sec": b / (wall / 1e3),
+                     "device_samples_per_sec": b / (ms / 1e3),
+                     "flop_bound_ms": bound, "share_of_bound": bound / ms})
+        print(f"train step B={b:4d} K={k:2d}: {ms:.3f} ms device elapsed, "
+              f"{wall:.3f} "
+              f"ms wall per step, {b / (wall / 1e3):,.0f} samples/s; FLOP "
+              f"bound {bound:.3f} ms ({bound / ms:.0%})", flush=True)
+    return rows
+
+
+# Kernel groups of a train step: the step's own labels (training/steps.py),
+# then the backward's autograd nodes, then the kernel's name.
+_TRAIN_LABELS = {"train.unwire": "nibble_unpack",
+                 "train.augment": "augmentation",
+                 "train.expand": "expansion kernel",
+                 "train.loss": "log-softmax and NLL",
+                 "train.optimizer": "optimizer"}
+_CONV_NAMES = ("conv", "xmma", "cudnn", "gemm", "sm90", "implicit")
+
+
+def train_group(kernel: str, scopes: list) -> str:
+    lower = kernel.lower()
+    if "memcpy htod" in lower:
+        return "H2D copy"
+    for scope in scopes:
+        if scope in _TRAIN_LABELS:
+            return _TRAIN_LABELS[scope]
+        if scope == "train.forward":
+            return ("conv forward" if any(c in lower for c in _CONV_NAMES)
+                    else "elementwise forward (casts, bias add, relu)")
+        node = scope.partition("evaluate_function: ")[2]
+        if node.startswith("ConvolutionBackward"):
+            if "dgrad" in lower:
+                return "conv data gradient"
+            if "wgrad" in lower:
+                return "conv weight gradient"
+            return "conv backward, other kernels"
+        if node.startswith(("LogSoftmaxBackward", "NllLossBackward")):
+            return "log-softmax and NLL"
+        if node.startswith("AddBackward") and "reduce" in lower:
+            return "bias-gradient reduction"
+        if node:
+            return "elementwise backward"
+    return "other"
+
+
+def profile_train_step(root: str, runs: int = 5):
+    """Device time of one B = 256 train step by kernel group, from
+    torch.profiler over ``runs`` steps fed by the sync loader (so the H2D
+    copy is in the window), beside the host wall time of one step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = policy_cnn.CONFIGS["full"]
+    opt = sgd(TRAIN_RATE)
+    model = fresh_model()
+    state = opt.init(model)
+    step = make_train_step(cfg, opt, wire="nibble")
+    b = TRAIN_RUN["batch_size"]
+    with AsyncLoader(GoDataset(root, "train"), b, seed=SEED, num_threads=0,
+                     device=DEVICE, wire="nibble") as loader:
+        for _ in range(2):
+            model, state, _ = step(model, state, loader.get())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                model, state, _ = step(model, state, loader.get())
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    groups, kernels, launched = {}, {}, 0
+    for evt in prof.events():
+        if not evt.kernels:
+            continue
+        scopes, e = [], evt
+        while e is not None:
+            scopes.append(e.name)
+            e = e.cpu_parent
+        for k in evt.kernels:
+            ms = k.duration / 1e3 / runs
+            group = train_group(k.name, scopes)
+            groups[group] = groups.get(group, 0.0) + ms
+            kernels[k.name[:100]] = kernels.get(k.name[:100], 0.0) + ms
+            launched += 1
+    busy_ms = sum(groups.values())
+    if busy_ms == 0.0:
+        print("train profile: torch.profiler recorded no device time",
+              flush=True)
+        return None
+    # the host's side: CPU time of the ops themselves, summed over threads
+    # (the autograd engine runs the backward on a thread of its own)
+    host = {e.key: e.self_cpu_time_total / 1e3 / runs
+            for e in prof.key_averages()}
+
+    def top(d, n):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
+
+    out = {"batch": b, "wall_ms": wall_ms, "device_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "kernels_per_step": launched / runs,
+           "groups_ms": top(groups, len(groups)),
+           "top_kernels_ms": top(kernels, 10),
+           "host_cpu_ms": sum(host.values()),
+           "top_host_ops_cpu_ms": top(host, 12)}
+    print("profile of one train step: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_step_card_vs_cpu(root: str) -> dict:
+    """One float32 train step on ``full`` at B = 64 on the card (TF32 off)
+    against the same step on the CPU, which the CPU tests tie to the JAX
+    package."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(policy_cnn.CONFIGS["full"],
+                              compute_dtype="float32")
+    out = {}
+    for device in (DEVICE, "cpu"):
+        opt = sgd(TRAIN_RATE)
+        model = fresh_model(cfg, device)
+        step = make_train_step(cfg, opt, wire="nibble")
+        model, _, loss = step(model, opt.init(model), fixed_superbatch(
+            root, STEP_CARD_VS_CPU_BATCH, 0, device))
+        out[device] = (float(loss), [p.detach().cpu() for p in
+                                     model.parameters()])
+    loss_err = abs(out[DEVICE][0] - out["cpu"][0])
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(out[DEVICE][1], out["cpu"][1]))
+    print(f"train step card vs CPU, float32 full B={STEP_CARD_VS_CPU_BATCH} "
+          f"with TF32 off: loss {out[DEVICE][0]:.6f} vs {out['cpu'][0]:.6f} "
+          f"(|diff| {loss_err:.3g}), updated params max-abs {param_err:.3g} "
+          f"(tolerance {STEP_CARD_VS_CPU_TOL})", flush=True)
+    check(loss_err <= STEP_CARD_VS_CPU_TOL
+          and param_err <= STEP_CARD_VS_CPU_TOL,
+          "float32 train step card vs CPU")
+    return {"loss_abs_err": loss_err, "param_max_abs": param_err}
+
+
+def prefetch_losses(root: str, device_prefetch: int, calls: int = 3):
+    """Per-step losses of ``calls`` K = 10 calls fed by one loader worker
+    (a stream that is a pure function of the seed) with the given device
+    prefetch, from the seed's model."""
+    cfg = policy_cnn.CONFIGS["full"]
+    opt = sgd(TRAIN_RATE)
+    model = fresh_model()
+    state = opt.init(model)
+    step = make_train_step_many(cfg, opt, wire="nibble")
+    losses = []
+    with AsyncLoader(GoDataset(root, "train"), TRAIN_RUN["batch_size"],
+                     seed=SEED, num_threads=1, prefetch=2, device=DEVICE,
+                     stack=10, wire="nibble",
+                     device_prefetch=device_prefetch) as loader:
+        for _ in range(calls):
+            model, state, loss = step(model, state, loader.get())
+            losses.append(loss)
+    return torch.cat(losses).cpu()
+
+
+def deterministic_main(root: str) -> int:
+    """The child process of phase 7: deterministic mode, set before CUDA
+    starts. A resumed run equals an uninterrupted one bitwise; the loader's
+    side-stream prefetch gives the losses of the inline copy; and the step
+    times under determinism. Prints one ``deterministic:`` JSON line."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = train_config(root, loader_threads=0, validation_interval=10_000,
+                       validation_size=256)
+    whole = Experiment(cfg, run_id="whole", device=DEVICE)
+    whole.run(RESUME_STEPS)
+    part = Experiment(cfg, run_id="part", device=DEVICE)
+    part.run(RESUME_STEPS // 2)
+    resumed = Experiment.load(part.save(), device=DEVICE)
+    resumed.run(RESUME_STEPS // 2)
+    check(resumed.step == whole.step == RESUME_STEPS, "resume step count")
+    resume_ok = same_state(resumed, whole) and resumed.ewma == whole.ewma
+    print(f"deterministic resume: {RESUME_STEPS} steps vs "
+          f"{RESUME_STEPS // 2} + save + load + {RESUME_STEPS // 2}: "
+          + ("bitwise equal" if resume_ok else "DIFFERENT"), flush=True)
+    check(resume_ok, "a resumed run equals an uninterrupted one bitwise")
+    inline, prefetched = prefetch_losses(root, 0), prefetch_losses(root, 2)
+    print(f"loader device_prefetch=2 vs 0 over {len(inline)} steps: "
+          + ("bitwise equal" if torch.equal(inline, prefetched) else
+             f"max-abs {float((inline - prefetched).abs().max()):.3g}"),
+          flush=True)
+    check(torch.equal(inline, prefetched),
+          "side-stream prefetch gives the inline copy's losses")
+    rows = time_train_steps(root, [t for t in TIMED if t[0] == 256])
+    print("deterministic: " + json.dumps({"resume_bitwise": resume_ok,
+                                          "prefetch_bitwise": True,
+                                          "steps": len(inline),
+                                          "timing": rows}), flush=True)
+    return 0
+
+
+def phase_deterministic(root: str) -> dict:
+    """Run ``deterministic_main`` in a child process (the switches must be
+    set before CUDA starts) and read its result."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--deterministic", root],
+        capture_output=True, text=True, timeout=600)
+    print(proc.stdout.rstrip(), flush=True)
+    check(proc.returncode == 0, f"deterministic child exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("deterministic: ")]
+    check(len(line) == 1, "deterministic child printed its result")
+    out = json.loads(line[0].partition(": ")[2])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_train_path() -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
+        t0 = time.perf_counter()
+        size = write_split(root)
+        print(f"synthetic split: {size / 1e6:.1f} MB written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        run = phase_train_run(root)
+        fixed = phase_fixed_batch(root)
+        timing = time_train_steps(root)
+        profile = profile_train_step(root)
+        card_vs_cpu = phase_step_card_vs_cpu(root)
+        det = phase_deterministic(root)
+    key = "device_elapsed_ms_per_step"
+    cost = {f"B={r['batch']} K={r['k']}": {
+        "deterministic_ms": r[key], "default_ms": d[key],
+        "cost": r[key] / d[key] - 1.0}
+        for r in det["timing"] for d in timing
+        if (d["batch"], d["k"]) == (r["batch"], r["k"])}
+    print("cost of deterministic mode per step: " + json.dumps(cost),
+          flush=True)
+    return {"run": run, "fixed_batch_losses": fixed, "timing": timing,
+            "profile": profile, "card_vs_cpu": card_vs_cpu,
+            "deterministic": det, "deterministic_cost": cost}
+
+
+def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
             "exact": all(r["exact"] for r in rows),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": top["ms"], "kernel_ms": top["ms"],
@@ -693,6 +1167,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; it needs one CUDA card",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--deterministic"] and len(sys.argv) == 3:
+        return deterministic_main(sys.argv[2])
     t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -717,6 +1193,7 @@ def main() -> int:
     sym_err = phase_card_vs_cpu(
         "fused sym forward", quant.make_fused_sym_policy_fn, var["model"],
         tuple(a[:CARD_VS_CPU_BOARDS] for a in var["boards"]))
+    train = phase_train_path()
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512
@@ -725,9 +1202,13 @@ def main() -> int:
 
     kernels = {"kernels": [
         kernel_entry("expand_planes", "deepgo_tpu/ops/pallas_expand.py:84",
-                     path["launches"], kernel_rows, top_row(kernel_rows, 1)),
+                     {"serving_f32": path["launches"],
+                      "training": train["run"]["launches"]},
+                     kernel_rows, top_row(kernel_rows, 1)),
         kernel_entry("expand_planes_sym",
-                     "deepgo_tpu/ops/pallas_expand.py:90", var["launches"],
+                     "deepgo_tpu/ops/pallas_expand.py:90",
+                     {"serving_int8_sym": var["launches"],
+                      "training": train["run"]["sym_launches"]},
                      sym_rows, top_row(sym_rows, 8)),
     ]}
     print("summary: " + json.dumps({
@@ -741,6 +1222,8 @@ def main() -> int:
             "gate", "gate_s", "cross_rung", "cross_rung_spread", "identities",
             "forward_wall_ms", "profile", "expand_launches")}
         | {"engine": var["stats"]},
+        "train_path": train | {"run": {
+            k: v for k, v in train["run"].items() if k != "validation"}},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,1 +1,3 @@
-"""Experiment artefacts: the checkpoint reader."""
+"""Experiment management: config, runs, checkpoints, warm restarts."""
+
+from .experiment import Experiment, ExperimentConfig  # noqa: F401

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import BOARD_SIZE, NUM_POINTS, resolve_device
 from ..features import NUM_PLANES
@@ -37,9 +38,10 @@ class ModelConfig:
 
     ``num_layers`` counts every convolution including the final 1-channel
     one. ``channels`` is one width for every hidden conv or a tuple of
-    ``num_layers - 1`` widths. ``remat`` is accepted so configs carry over
-    unchanged, and ignored: it trades recomputation for activation memory
-    in the backward pass, which only training runs."""
+    ``num_layers - 1`` widths. ``remat`` recomputes each layer's
+    activations in the backward pass instead of keeping them (activation
+    memory for compute, as ``jax.checkpoint`` per layer in the JAX
+    package); a forward without gradients is unchanged by it."""
 
     num_layers: int = 3
     channels: int | tuple[int, ...] = 64
@@ -131,11 +133,21 @@ class PolicyCNN(nn.Module):
         point (x, y) is logit ``19*x + y``."""
         x = planes.permute(0, 3, 1, 2).to(self.cfg.torch_dtype)
         last = len(self.layers) - 1
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x)
-            if i < last or self.cfg.final_relu:
-                x = F.relu(x)
+            relu = i < last or self.cfg.final_relu
+            if remat:
+                x = checkpoint(_conv_layer, layer, x, relu,
+                               use_reentrant=False)
+            else:
+                x = _conv_layer(layer, x, relu)
         return x.reshape(x.shape[0], NUM_POINTS).float()
+
+
+def _conv_layer(layer: nn.Module, x: torch.Tensor, relu: bool
+                ) -> torch.Tensor:
+    x = layer(x)
+    return F.relu(x) if relu else x
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,

@@ -26,6 +26,19 @@ def table(rows, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64, device=device)
 
 
+_device_tables: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """PERM and TARGET_MAP on ``device``, uploaded once: an upload from
+    pageable host memory would wait for the card at every training step."""
+    tables = _device_tables.get(device)
+    if tables is None:
+        tables = (table(_PERM_NP, device), table(_TARGET_MAP_NP, device))
+        _device_tables[device] = tables
+    return tables
+
+
 def augment_batch(packed: torch.Tensor, target: torch.Tensor,
                   sym: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply per-sample board symmetries on the inputs' device.
@@ -35,9 +48,10 @@ def augment_batch(packed: torch.Tensor, target: torch.Tensor,
     group."""
     b = packed.shape[0]
     sym = sym.long()
-    perm = table(_PERM_NP, packed.device)[sym]  # (B, 361)
+    perm_table, target_table = _tables(packed.device)
+    perm = perm_table[sym]  # (B, 361)
     flat = packed.reshape(b, packed.shape[1], NUM_POINTS)
     out = torch.gather(flat, 2, perm[:, None, :].expand_as(flat))
-    new_target = torch.gather(table(_TARGET_MAP_NP, packed.device)[sym], 1,
+    new_target = torch.gather(target_table[sym], 1,
                               target.long()[:, None])[:, 0]
     return out.reshape(packed.shape), new_target.to(target.dtype)
