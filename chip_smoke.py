@@ -67,11 +67,40 @@ then, each phase failing the run on the first disagreement:
    one step and K = 10 per call, beside the FLOP bound; the same at
    B = 256 in deterministic mode; a torch.profiler breakdown of one
    B = 256 step by kernel group.
+8. serving stack: ``fleet_policy_engine`` and ``fleet_value_engine`` on the
+   card, each sub-path with the launch counts zeroed just before it and
+   read just after. (a) Two supervised ``full`` replicas behind the router
+   with the position cache (exact keys) serve phase 4's bursts, the
+   requests rotating through the interactive, selfplay and batch tiers
+   and a quarter of them repeating an earlier board or showing one of its
+   dihedral views: rows finite, normalised, bitwise the direct forward at
+   the rung they dispatched on, within ``CROSS_RUNG_TOL`` of the top rung;
+   cache-served rows bitwise their leader's; expansion launches = the
+   replicas' forwards, sym 0; per-tier p50/p99, the cache hit rate and
+   dispatches per rung printed. (b) The same with replica 0's dispatcher
+   killed once mid-burst by a fault plan: every request answered, a
+   restart, the rows as in (a), the time from the death's flight dump to
+   replica 0's first answer. (c) Under traffic, ``reload`` to seed-1
+   weights as a module, back to seed 0, then to seed 1 from a checkpoint
+   the port wrote: after each, rows bitwise the new weights' direct
+   forward. (d) ``variants=("f32", "int8+sym")`` over phase 5's grid net:
+   the gate passes, the f32 replica's forwards = expansion launches, the
+   int8+sym replica's = sym launches, rows bitwise their variant's forward.
+   (e) ``platforms=("cuda", "cpu")`` on the ladder (1, 8): batch-tier
+   boards land on the CPU replica and add no launch, interactive boards
+   on the card replica; after the card replica is ejected (and kept down)
+   interactive boards fail over to the CPU replica, whose rows are bitwise
+   its own forward at the rung and within ``CROSS_RUNG_TOL`` of the
+   card's. (f) The value net (``ValueConfig`` defaults, 3 x 64, bf16,
+   seed 0) behind two replicas: rows bitwise the direct value forward,
+   launches = forwards; its float32 forward card vs CPU (TF32 off) within
+   1e-4. Flight dumps, quarantine files and the checkpoint go to a
+   temporary directory.
 
 The last lines are a ``summary:`` JSON line of the paths' checks and
-timings, the card line from nvidia-smi, one ``kernels`` JSON object (the
-expansion kernel's launches by path), and ``{"ok": true, "device":
-{...}}``. Without CUDA it exits 1 and prints no result.
+timings, the card line from nvidia-smi, one ``kernels`` JSON object (each
+kernel's launches by path), and ``{"ok": true, "device": {...}}``. Without
+CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -96,14 +125,19 @@ from deepgo_tpu_torch.data.loader import (AsyncLoader, make_step_batch,
 from deepgo_tpu_torch.experiments import checkpoint as ckpt
 from deepgo_tpu_torch.experiments.experiment import (Experiment,
                                                      ExperimentConfig)
-from deepgo_tpu_torch.models import policy_cnn, quant
-from deepgo_tpu_torch.models.serving import make_log_prob_fn
+from deepgo_tpu_torch.models import convert, policy_cnn, quant, value_cnn
+from deepgo_tpu_torch.models.serving import make_log_prob_fn, make_value_fn
+from deepgo_tpu_torch.obs import configure_flight
 from deepgo_tpu_torch.ops import _build, cuda_expand
 from deepgo_tpu_torch.ops import expand as plain_expand
-from deepgo_tpu_torch.serving import (EngineConfig, policy_engine,
+from deepgo_tpu_torch.serving import (BucketLadder, CacheConfig,
+                                      EngineConfig, FleetConfig,
+                                      SupervisorConfig, fleet_policy_engine,
+                                      fleet_value_engine, policy_engine,
                                       variant_spec, verify_variant)
 from deepgo_tpu_torch.training import (make_train_step, make_train_step_many,
                                        sgd)
+from deepgo_tpu_torch.utils import digest, faults
 from deepgo_tpu_torch.utils.metrics import read_jsonl
 
 SEED = 0
@@ -164,7 +198,14 @@ STEP_CARD_VS_CPU_TOL = 1e-5
 STEP_CARD_VS_CPU_BATCH = 64
 RESUME_STEPS = 40      # deterministic resume: 40 == 20, save, load, 20
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (NVIDIA data sheet)
-DEVICE = "cuda"            # phase 7's device
+DEVICE = "cuda"            # phases 7 and 8's device
+# Phase 8, the serving stack behind the engine. Requests rotate through
+# the three tiers; a quarter repeat an earlier board or one of its views.
+FLEET_TIERS = ("interactive", "selfplay", "batch")
+RESTART_AT = 5        # replica 0's dispatcher dies at its 5th window
+RELOAD_BOARDS = 64    # boards checked after each reload
+SURGE_LADDER = (1, 8)  # keeps the CPU surge replica's forwards cheap
+SURGE_BOARDS = {"batch": 32, "interactive": 16, "failover": 8}
 
 
 def check(ok: bool, what: str) -> None:
@@ -361,9 +402,12 @@ def phase_sym_kernel(rng, extra) -> list[dict]:
     return rows
 
 
-def run_bursts(engine, packed, player, rank):
+def run_bursts(engine, packed, player, rank, tiers=None, on_submit=None):
     """Each burst's requests submitted together from THREADS threads; the
-    next burst starts when every future of this one resolved."""
+    next burst starts when every future of this one resolved. ``tiers``
+    gives each request its fleet tier; ``on_submit(i, future, t_call)``
+    runs right after request i is submitted, ``t_call`` the perf_counter
+    time the submit call began."""
     futures = [None] * len(packed)
     start = 0
     for size in BURSTS:
@@ -375,7 +419,12 @@ def run_bursts(engine, packed, player, rank):
             try:
                 gate.wait(timeout=60)
                 for i in part:
-                    futures[i] = engine.submit(packed[i], player[i], rank[i])
+                    kw = {} if tiers is None else {"tier": tiers[i]}
+                    t_call = time.perf_counter()
+                    futures[i] = engine.submit(packed[i], player[i], rank[i],
+                                               **kw)
+                    if on_submit is not None:
+                        on_submit(i, futures[i], t_call)
             except Exception as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
 
@@ -1146,6 +1195,467 @@ def phase_train_path() -> dict:
             "deterministic": det, "deterministic_cost": cost}
 
 
+def fleet_boards(gen, n=sum(BURSTS)):
+    """``n`` serving boards in which every fourth request from the fourth
+    on repeats an earlier board or shows one of its other dihedral views
+    (same player and rank), and the tiers rotate interactive, selfplay,
+    batch."""
+    packed, player, rank = serving_boards(gen, n)
+    for i in range(4, n, 4):
+        j = int(gen.integers(0, i))
+        packed[i] = digest.dihedral_views(packed[j])[int(gen.integers(0, 8))]
+        player[i], rank[i] = player[j], rank[j]
+    return (packed, player, rank), [FLEET_TIERS[i % 3] for i in range(n)]
+
+
+def check_fleet_rows(forward, model, ladder, boards, futures, tol,
+                     position_cache=None) -> dict:
+    """Fleet rows finite and normalised; every row a replica dispatched
+    bitwise equal to ``forward`` at its rung; every row within ``tol`` of
+    the top rung; with ``position_cache`` (exact keying: a leader
+    dispatches its own board, and the map back from the stored row is the
+    identity), every cache-served row (hit or follower) bitwise equal to
+    its leader's row."""
+    n = len(boards[0])
+    rows = np.stack([f.result() for f in futures])
+    check(rows.shape == (n, 361) and rows.dtype == np.float32, "row shape")
+    check(bool(np.isfinite(rows).all()), "finite rows")
+    lse = np.log(np.exp(rows.astype(np.float64)).sum(axis=1))
+    check(float(np.abs(lse).max()) <= 1e-3, "rows normalised")
+    buckets = np.array([-1 if f.bucket is None else f.bucket
+                        for f in futures])
+    for bucket in ladder.buckets:
+        idx = np.flatnonzero(buckets == bucket)
+        if len(idx):
+            check(np.array_equal(rows[idx], direct(forward, model, ladder,
+                                                   boards, idx, bucket)),
+                  f"fleet rows at rung {bucket} != direct forward bitwise")
+    roles = {}
+    if position_cache is not None:
+        check(position_cache.config.keying == "exact", "exact keying")
+        keys = [position_cache.prepare(*(a[i] for a in boards))[0]
+                for i in range(n)]
+        leaders = {}
+        for i, f in enumerate(futures):
+            role = getattr(f, "cache", "bypass")
+            roles[role] = roles.get(role, 0) + 1
+            if role == "leader":
+                leaders[keys[i]] = rows[i]
+        for i, f in enumerate(futures):
+            if getattr(f, "cache", None) in ("hit", "follower"):
+                check(np.array_equal(rows[i], leaders[keys[i]]),
+                      f"cache-served row {i} != its leader's row")
+        check(roles.get("hit", 0) + roles.get("follower", 0) >= 1,
+              "the cache served at least one repeat")
+    top = direct(forward, model, ladder, boards, np.arange(n),
+                 ladder.max_bucket)
+    mask = np.exp(top) >= 1e-3
+    cross = float(np.abs(rows - top)[mask].max())
+    check(cross <= tol, f"fleet rows across rungs: {cross} > {tol}")
+    return {"cross_rung": cross, "roles": roles,
+            "dispatched": int((buckets >= 0).sum())}
+
+
+class Stamps:
+    """Per request: its tier, the host time of its submit call, the time
+    from the call to its resolution (perf_counter), and the wall time it
+    resolved at."""
+
+    def __init__(self, tiers):
+        self.tiers = tiers
+        self.t0, self.t1, self.wall, self.call = {}, {}, {}, {}
+
+    def on_submit(self, i, future, t_call):
+        self.t0[i] = t_call
+        self.call[i] = time.perf_counter() - t_call
+
+        def done(f, i=i):
+            self.t1[i] = time.perf_counter()
+            self.wall[i] = time.time()
+
+        future.add_done_callback(done)
+
+    def per_tier(self) -> dict:
+        out = {}
+        for tier in FLEET_TIERS:
+            ms = [(self.t1[i] - self.t0[i]) * 1e3 for i in self.t1
+                  if self.tiers[i] == tier]
+            out[tier] = {"requests": len(ms),
+                         "p50_ms": float(np.percentile(ms, 50)),
+                         "p99_ms": float(np.percentile(ms, 99))}
+        calls = np.array(list(self.call.values())) * 1e3
+        out["submit_call"] = {"p50_ms": float(np.percentile(calls, 50)),
+                              "p99_ms": float(np.percentile(calls, 99))}
+        return out
+
+
+def fleet_dispatches(stats) -> dict:
+    """Dispatches per rung summed over a fleet's replicas."""
+    out = {}
+    for rep in stats["replicas"]:
+        for bucket, hits in rep.get("bucket_hits", {}).items():
+            out[bucket] = out.get(bucket, 0) + hits
+    return dict(sorted(out.items(), key=lambda kv: int(kv[0])))
+
+
+def replica_forwards(stats) -> list:
+    return [rep["forwards"] for rep in stats["replicas"]]
+
+
+def serve_fleet(fleet, boards, tiers, stamps=None):
+    """Warm every replica, serve the bursts, close the fleet; returns the
+    futures, the launch counts (reset just before the warm-up) and the
+    fleet's stats."""
+    try:
+        cuda_expand.reset_launches()
+        fleet.warmup()
+        futures = run_bursts(fleet, *boards, tiers=tiers,
+                             on_submit=stamps.on_submit if stamps else None)
+    finally:
+        fleet.close()
+    return futures, (cuda_expand.launches, cuda_expand.sym_launches), \
+        fleet.stats()
+
+
+def phase_fleet_cache(model, cfg, boards, tiers, tmp) -> dict:
+    """8a: two replicas behind the router with the position cache."""
+    fleet = fleet_policy_engine(
+        model, cfg, replicas=2, config=EngineConfig(max_wait_ms=50.0),
+        supervisor=SupervisorConfig(quarantine_dir=tmp),
+        cache=CacheConfig(), device=DEVICE)
+    stamps = Stamps(tiers)
+    t0 = time.perf_counter()
+    futures, (launches, sym), stats = serve_fleet(fleet, boards, tiers,
+                                                  stamps)
+    t_serve = time.perf_counter() - t0
+    forwards = replica_forwards(stats)
+    print(f"fleet with cache: {len(futures)} requests in {t_serve:.2f} s "
+          f"(warm-up included); expansion kernel {launches} launches for "
+          f"replica forwards {forwards}, sym kernel {sym}", flush=True)
+    check(launches == sum(forwards) and min(forwards) > 0 and sym == 0,
+          f"fleet: expansion launches {launches} != replica forwards "
+          f"{forwards}, or sym launches {sym}")
+    rows = check_fleet_rows(make_log_prob_fn(cfg, device=DEVICE), model,
+                            fleet.ladder, boards, futures, CROSS_RUNG_TOL,
+                            fleet.cache)
+    cstats = stats["fleet"]["cache"]
+    lookups = cstats["hits"] + cstats["misses"] + cstats["coalesced"]
+    out = {"launches": launches, "replica_forwards": forwards,
+           "serve_s": t_serve, "tiers": stamps.per_tier(),
+           "fleet_tiers": stats["fleet"]["tiers"],
+           "cache": cstats, "cache_hit_rate": (cstats["hits"]
+                                               + cstats["coalesced"])
+           / lookups, "dispatches_per_rung": fleet_dispatches(stats),
+           "replica_engines": [{k: r[k] for k in ("dispatches", "p50_ms",
+                                                  "p99_ms", "occupancy")}
+                               for r in stats["replicas"]], **rows}
+    print("fleet with cache: " + json.dumps(
+        {k: out[k] for k in ("tiers", "cache_hit_rate", "roles",
+                             "dispatches_per_rung", "replica_engines",
+                             "cross_rung")}), flush=True)
+    return out
+
+
+def phase_fleet_restart(model, cfg, boards, tiers, tmp) -> dict:
+    """8b: replica 0's dispatcher killed once mid-burst."""
+    rec = configure_flight(os.path.join(tmp, "flight"))
+    faults.install(f"serving_dispatch.restart-0:fail@{RESTART_AT}")
+    fleet = fleet_policy_engine(
+        model, cfg, replicas=2, config=EngineConfig(max_wait_ms=50.0),
+        supervisor=SupervisorConfig(quarantine_dir=tmp),
+        cache=CacheConfig(), device=DEVICE, name="restart")
+    stamps = Stamps(tiers)
+    try:
+        futures, (launches, _), stats = serve_fleet(fleet, boards, tiers,
+                                                    stamps)
+    finally:
+        faults.reset()
+        rec.close()
+    check(all(f.done() and f.exception() is None for f in futures),
+          "every request answered after the dispatcher died")
+    restarts = [r["supervisor"]["restarts"] for r in stats["replicas"]]
+    replayed = [r["supervisor"]["replayed"] for r in stats["replicas"]]
+    check(restarts[0] >= 1, f"replica 0 restarted (restarts {restarts})")
+    dumps = []
+    for p in rec.dumps:
+        with open(p) as f:
+            dumps.append(json.load(f))
+    deaths = [d["time"] for d in dumps if d["reason"] == "serving_restart"]
+    check(len(deaths) == restarts[0], "one flight dump per restart")
+    t_death = deaths[0]
+    after = [stamps.wall[i] for i, fut in enumerate(futures)
+             if getattr(fut, "replica", None) == 0
+             and stamps.wall[i] >= t_death]
+    check(bool(after), "replica 0 answered after its restart")
+    first_ms = (min(after) - t_death) * 1e3
+    rows = check_fleet_rows(make_log_prob_fn(cfg, device=DEVICE), model,
+                            fleet.ladder, boards, futures, CROSS_RUNG_TOL,
+                            fleet.cache)
+    check(launches >= sum(replica_forwards(stats)) > 0,
+          "expansion launches cover the live replicas' forwards")
+    out = {"launches": launches, "restarts": restarts, "replayed": replayed,
+           "restart_to_first_answer_ms": first_ms,
+           "tiers": stamps.per_tier(), **rows}
+    print("fleet restart: " + json.dumps(
+        {k: out[k] for k in ("restarts", "replayed",
+                             "restart_to_first_answer_ms", "launches",
+                             "cross_rung")}), flush=True)
+    return out
+
+
+def phase_fleet_reload(model, cfg, tmp) -> dict:
+    """8c: reload under traffic, to seed-1 weights as a module, back to
+    seed 0, then to seed 1 from a checkpoint the port wrote."""
+    model1 = policy_cnn.init(torch.Generator().manual_seed(SEED + 1), cfg,
+                             device=DEVICE)
+    path = os.path.join(tmp, "seed1.npz")
+    ckpt.save_checkpoint(path, convert.params_to_jax(model1), {},
+                         {"config": {"num_layers": cfg.num_layers,
+                                     "channels": cfg.channels}})
+    boards = serving_boards(np.random.default_rng(SEED + 81), RELOAD_BOARDS)
+    forward = make_log_prob_fn(cfg, device=DEVICE)
+    fleet = fleet_policy_engine(model, cfg, replicas=2,
+                                config=EngineConfig(max_wait_ms=5.0),
+                                device=DEVICE, name="reload")
+    stop, traffic, errors = threading.Event(), [], []
+
+    def background():
+        try:
+            k = 0
+            while not stop.is_set():
+                i = k % RELOAD_BOARDS
+                traffic.append(fleet.submit(*(a[i] for a in boards))
+                               .result(timeout=60))
+                k += 1
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    def served() -> tuple:
+        futures = [fleet.submit(*(a[i] for a in boards))
+                   for i in range(RELOAD_BOARDS)]
+        return (np.stack([f.result(timeout=60) for f in futures]),
+                np.array([f.bucket for f in futures]))
+
+    seconds, after = [], []
+    try:
+        cuda_expand.reset_launches()
+        fleet.warmup()
+        worker = threading.Thread(target=background)
+        worker.start()
+        for weights, source in ((model1, model1), (model, model),
+                                (model1, path)):
+            seconds.append(fleet.reload(source)["seconds"])
+            after.append((weights, *served()))
+        stop.set()
+        worker.join(timeout=120)
+        check(not worker.is_alive() and not errors,
+              f"traffic during the reloads: {errors}")
+    finally:
+        stop.set()
+        fleet.close()
+    launches = cuda_expand.launches
+    stats = fleet.stats()
+    check(launches == sum(replica_forwards(stats)) > 0,
+          "reload: expansion launches == replica forwards")
+    # the direct forwards compared with run after the count was read
+    for weights, rows, buckets in after:
+        for bucket in fleet.ladder.buckets:
+            idx = np.flatnonzero(buckets == bucket)
+            if len(idx):
+                check(np.array_equal(rows[idx], direct(
+                    forward, weights, fleet.ladder, boards, idx, bucket)),
+                    f"rows after reload at rung {bucket} != the new "
+                    "weights' direct forward")
+    got = np.stack(traffic)
+    check(len(traffic) > 0 and bool(np.isfinite(got).all()),
+          "traffic rows during the reloads finite")
+    out = {"launches": launches, "reload_s": seconds,
+           "traffic_requests": len(traffic)}
+    print("fleet reload: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_fleet_variants(grid, cfg, boards) -> dict:
+    """8d: an f32 replica and an int8+sym replica behind one router."""
+    t0 = time.perf_counter()
+    fleet = fleet_policy_engine(grid, cfg, replicas=2,
+                                config=EngineConfig(max_wait_ms=50.0),
+                                device=DEVICE, name="mixed",
+                                variants=("f32", "int8+sym"))
+    t_gate = time.perf_counter() - t0
+    check([r.engine.variant for r in fleet._replicas]
+          == ["f32", "int8+sym"], "replica variants")
+    futures, (launches, sym), stats = serve_fleet(
+        fleet, boards, [FLEET_TIERS[0]] * len(boards[0]))
+    forwards = replica_forwards(stats)
+    print(f"mixed fleet (gate and build {t_gate:.2f} s): replica forwards "
+          f"{forwards}, expansion launches {launches}, sym launches {sym}",
+          flush=True)
+    check(launches == forwards[0] and sym == forwards[1]
+          and min(forwards) > len(fleet.ladder.buckets),
+          "mixed fleet: the f32 replica's forwards == expansion launches, "
+          "the int8+sym replica's == sym launches, both served traffic")
+    spec = variant_spec(cfg, "int8+sym", device=DEVICE)
+    qgrid = spec.prepare(grid)
+    per = {0: (make_log_prob_fn(cfg, device=DEVICE), grid),
+           1: (spec.forward, qgrid)}
+    cross = {}
+    for rep, (fwd, params) in per.items():
+        idx = [i for i, f in enumerate(futures) if f.replica == rep]
+        sub = tuple(a[idx] for a in boards)
+        cross[rep] = check_fleet_rows(fwd, params, fleet.ladder, sub,
+                                      [futures[i] for i in idx],
+                                      GRID_NET_CROSS_RUNG_TOL)["cross_rung"]
+    return {"expand_launches": launches, "sym_launches": sym,
+            "replica_forwards": forwards, "gate_and_build_s": t_gate,
+            "cross_rung": cross}
+
+
+def phase_fleet_surge(model, cfg) -> dict:
+    """8e: a card replica and a CPU surge replica behind one router. The
+    ejected card replica is not respawned (max_respawns=0), so the
+    failover is observed without racing its rebuild."""
+    fleet = fleet_policy_engine(
+        model, cfg, replicas=2, platforms=("cuda", "cpu"),
+        config=EngineConfig(buckets=SURGE_LADDER, max_wait_ms=5.0),
+        fleet=FleetConfig(max_respawns=0), name="surge")
+    gen = np.random.default_rng(SEED + 85)
+    groups = {k: serving_boards(gen, n) for k, n in SURGE_BOARDS.items()}
+
+    def serve(name, tier):
+        futures = [fleet.submit(*(a[i] for a in groups[name]), tier=tier)
+                   for i in range(SURGE_BOARDS[name])]
+        return np.stack([f.result(timeout=120) for f in futures]), \
+            [f.replica for f in futures], [f.bucket for f in futures]
+
+    try:
+        check([r.engine.platform for r in fleet._replicas]
+              == ["cuda", "cpu"], "surge fleet platforms")
+        cuda_expand.reset_launches()
+        fleet.warmup()
+        batch, batch_on, batch_at = serve("batch", "batch")
+        after_batch = cuda_expand.launches
+        warm = replica_forwards(fleet.stats())
+        inter, inter_on, _ = serve("interactive", "interactive")
+        after_inter = cuda_expand.launches
+        forwards = replica_forwards(fleet.stats())
+        check(fleet.eject_replica(0, reason="chip_smoke"),
+              "the card replica ejected")
+        fail, fail_on, _ = serve("failover", "interactive")
+        deadline = time.monotonic() + 30
+        while (fleet.health()["replicas"][0]["state"] != "failed"
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        health = fleet.health()
+        cpu_engine = {k: fleet.stats()["replicas"][1][k]
+                      for k in ("dispatches", "bucket_hits", "p50_ms",
+                                "p99_ms")}
+    finally:
+        fleet.close()
+    print(f"surge fleet: batch tier on replicas {sorted(set(batch_on))}, "
+          f"interactive on {sorted(set(inter_on))}, after ejecting the card "
+          f"replica on {sorted(set(fail_on))}; expansion launches "
+          f"{after_batch} after the batch tier (card replica forwards "
+          f"{warm[0]}), {after_inter} after the interactive tier (card "
+          f"replica forwards {forwards[0]})", flush=True)
+    check(set(batch_on) == {1} and after_batch == warm[0],
+          "batch-tier boards land on the CPU replica and add no launch")
+    check(set(inter_on) == {0} and after_inter == forwards[0] > warm[0]
+          and bool(np.isfinite(inter).all()),
+          "interactive boards land on the card replica, one launch each "
+          "forward")
+    check(set(fail_on) == {1} and bool(np.isfinite(fail).all())
+          and health["replicas"][0]["state"] == "failed"
+          and health["state"] == "degraded",
+          "interactive traffic fails over to the CPU replica")
+    # the CPU replica's rows: bitwise its own forward at the rung, and
+    # within CROSS_RUNG_TOL of the card's
+    cpu_fwd = make_log_prob_fn(cfg, device="cpu")
+    cpu_model = cpu_copy(model)
+    ladder = BucketLadder(SURGE_LADDER)
+    b = groups["batch"]
+    for bucket in ladder.buckets:
+        idx = np.flatnonzero(np.array(batch_at) == bucket)
+        if len(idx):
+            check(np.array_equal(batch[idx], direct(cpu_fwd, cpu_model,
+                                                    ladder, b, idx, bucket)),
+                  f"CPU replica rows at rung {bucket} != CPU forward")
+    card = direct(make_log_prob_fn(cfg, device=DEVICE), model, ladder, b,
+                  np.arange(len(b[0])), ladder.max_bucket)
+    err = float(np.abs(batch - card)[np.exp(card) >= 1e-3].max())
+    print(f"surge fleet: CPU replica rows vs the card's, max-abs over p >= "
+          f"1e-3: {err:.3g} (tolerance {CROSS_RUNG_TOL})", flush=True)
+    check(err <= CROSS_RUNG_TOL, "CPU rows vs the card's")
+    print("surge fleet: CPU replica engine " + json.dumps(cpu_engine),
+          flush=True)
+    return {"launches": after_inter, "card_forwards": forwards[0],
+            "cpu_vs_card_max_abs": err, "cpu_engine": cpu_engine,
+            "replicas": {"batch": sorted(set(batch_on)),
+                         "interactive": sorted(set(inter_on)),
+                         "failover": sorted(set(fail_on))}}
+
+
+def phase_value_fleet() -> dict:
+    """8f: the value net (ValueConfig defaults, 3 x 64 bf16) behind two
+    replicas; then its float32 forward on the card against the CPU."""
+    vcfg = value_cnn.ValueConfig()
+    check((vcfg.num_layers, vcfg.channels, vcfg.compute_dtype)
+          == (3, 64, "bfloat16"), "value config defaults")
+    vmodel = value_cnn.init(torch.Generator().manual_seed(SEED), vcfg,
+                            device=DEVICE)
+    boards = serving_boards(np.random.default_rng(SEED + 86))
+    fleet = fleet_value_engine(vmodel, vcfg, replicas=2,
+                               config=EngineConfig(max_wait_ms=50.0),
+                               device=DEVICE)
+    futures, (launches, sym), stats = serve_fleet(
+        fleet, boards, [FLEET_TIERS[0]] * len(boards[0]))
+    forwards = replica_forwards(stats)
+    check(launches == sum(forwards) and min(forwards) > 0 and sym == 0,
+          f"value fleet: expansion launches {launches} != replica forwards "
+          f"{forwards}, or sym {sym}")
+    rows = np.array([f.result() for f in futures])
+    check(rows.shape == (len(futures),) and rows.dtype == np.float32
+          and bool(((rows > 0) & (rows < 1)).all()), "win-probs in (0, 1)")
+    forward = make_value_fn(vcfg, device=DEVICE)
+    ladder = fleet.ladder
+    buckets = np.array([f.bucket for f in futures])
+    for bucket in ladder.buckets:
+        idx = np.flatnonzero(buckets == bucket)
+        if len(idx):
+            check(np.array_equal(rows[idx], direct(forward, vmodel, ladder,
+                                                   boards, idx, bucket)),
+                  f"value rows at rung {bucket} != direct forward bitwise")
+    top = direct(forward, vmodel, ladder, boards, np.arange(len(rows)),
+                 ladder.max_bucket)
+    cross = float(np.abs(rows - top).max())
+    err = phase_card_vs_cpu("value forward", make_value_fn, vmodel,
+                            tuple(a[:CARD_VS_CPU_BOARDS] for a in boards))
+    print(f"value fleet: expansion kernel {launches} launches for replica "
+          f"forwards {forwards}; win-prob max-abs vs the top rung "
+          f"{cross:.3g}", flush=True)
+    return {"launches": launches, "replica_forwards": forwards,
+            "cross_rung_max_abs": cross, "card_vs_cpu_f32_max_abs": err,
+            "dispatches_per_rung": fleet_dispatches(stats)}
+
+
+def phase_fleet_path(model, grid) -> dict:
+    """Phase 8: the serving stack behind the engine, on the card."""
+    cfg = policy_cnn.CONFIGS["full"]
+    t0 = time.perf_counter()
+    boards, tiers = fleet_boards(np.random.default_rng(SEED + 8))
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as tmp:
+        out = {"cache": phase_fleet_cache(model, cfg, boards, tiers, tmp),
+               "restart": phase_fleet_restart(model, cfg, boards, tiers,
+                                              tmp),
+               "reload": phase_fleet_reload(model, cfg, tmp)}
+    out["variants"] = phase_fleet_variants(grid, cfg, boards)
+    out["surge"] = phase_fleet_surge(model, cfg)
+    out["value"] = phase_value_fleet()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 8: {out['seconds']:.2f} s", flush=True)
+    return out
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -1194,6 +1704,7 @@ def main() -> int:
         "fused sym forward", quant.make_fused_sym_policy_fn, var["model"],
         tuple(a[:CARD_VS_CPU_BOARDS] for a in var["boards"]))
     train = phase_train_path()
+    fleet = phase_fleet_path(path["model"], var["model"])
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512
@@ -1203,12 +1714,20 @@ def main() -> int:
     kernels = {"kernels": [
         kernel_entry("expand_planes", "deepgo_tpu/ops/pallas_expand.py:84",
                      {"serving_f32": path["launches"],
-                      "training": train["run"]["launches"]},
+                      "training": train["run"]["launches"],
+                      "fleet_cache": fleet["cache"]["launches"],
+                      "fleet_restart": fleet["restart"]["launches"],
+                      "fleet_reload": fleet["reload"]["launches"],
+                      "fleet_mixed_f32": fleet["variants"]["expand_launches"],
+                      "fleet_surge": fleet["surge"]["launches"],
+                      "value_fleet": fleet["value"]["launches"]},
                      kernel_rows, top_row(kernel_rows, 1)),
         kernel_entry("expand_planes_sym",
                      "deepgo_tpu/ops/pallas_expand.py:90",
                      {"serving_int8_sym": var["launches"],
-                      "training": train["run"]["sym_launches"]},
+                      "training": train["run"]["sym_launches"],
+                      "fleet_mixed_int8_sym":
+                          fleet["variants"]["sym_launches"]},
                      sym_rows, top_row(sym_rows, 8)),
     ]}
     print("summary: " + json.dumps({
@@ -1224,6 +1743,7 @@ def main() -> int:
         | {"engine": var["stats"]},
         "train_path": train | {"run": {
             k: v for k, v in train["run"].items() if k != "validation"}},
+        "fleet_path": fleet,
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

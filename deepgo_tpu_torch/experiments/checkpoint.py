@@ -17,7 +17,9 @@ weight ``(k, k, c_in, c_out)``; an SGD state stores ``rate`` then its
 port writes the JAX layout (``models/convert.py``), so a file it writes
 holds the arrays, CRC32s and digest the JAX package would write for the
 same state, and either package loads the other's files.
-``policy_state_dict`` rebuilds a ``PolicyCNN`` state dict from the leaves.
+``policy_state_dict`` rebuilds a ``PolicyCNN`` state dict from the leaves;
+``load_model_like`` reads a checkpoint into a fresh ``PolicyCNN`` or
+``ValueCNN`` shaped like a given one (the fleet's reload from a path).
 """
 
 from __future__ import annotations
@@ -355,6 +357,25 @@ def model_config_from_meta(meta: dict, path: str = "<checkpoint>"
     except ValueError as e:
         raise CheckpointError(path, f"config does not build a model: {e}"
                               ) from e
+
+
+def load_model_like(template, path: str):
+    """A fresh module of ``template``'s class and config (a ``PolicyCNN``
+    or a ``ValueCNN``) on ``template``'s device, holding the parameters of
+    the checkpoint at ``path``. ``template`` itself is never written.
+    Raises ``CheckpointError`` for a corrupt file or one whose leaves do
+    not fit the config."""
+    from ..models import convert
+    from ..models.value_cnn import ValueCNN
+
+    to_jax, from_jax = ((convert.value_to_jax, convert.value_from_jax)
+                        if isinstance(template, ValueCNN) else
+                        (convert.params_to_jax, convert.params_from_jax))
+    _, leaves, _ = load_checkpoint(path)
+    model = type(template)(template.cfg)
+    model.load_state_dict(from_jax(unflatten_like(to_jax(model), leaves,
+                                                  path)))
+    return model.to(next(template.parameters()).device)
 
 
 def policy_state_dict(leaves, cfg: ModelConfig, path: str = "<checkpoint>"

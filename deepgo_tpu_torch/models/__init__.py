@@ -1,2 +1,2 @@
-"""Models: the policy CNN, weight conversion from the JAX layout, and the
-serving forwards."""
+"""Models: the policy CNN, the value CNN, weight conversion from the JAX
+layout, and the serving forwards."""

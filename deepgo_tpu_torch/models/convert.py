@@ -6,8 +6,11 @@ The JAX package keeps ``{"layers": [{"w": (k, k, c_in, c_out) HWIO,
 (``{"w_q", "w_scale", "b"}`` per layer) maps to ``QuantPolicyCNN``'s
 ``w_q`` / ``w_scale`` / ``bias`` buffers the same way. An optimizer state
 (``training/optimizers.py``) maps its ``velocity`` / ``accum`` trees through
-the same transposes and its ``rate`` as a float32 scalar. Both directions
-are transposes only, so a round trip is bitwise.
+the same transposes and its ``rate`` as a float32 scalar. The value net's
+tree (``models/value_cnn.py``) adds ``head_conv`` (a conv like the
+policy's) and the dense layers ``dense1`` / ``dense2``, whose (in, out)
+weights become ``nn.Linear``'s (out, in). Both directions are transposes
+only, so a round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -104,6 +107,40 @@ def qparams_to_jax(qmodel) -> dict:
                        "w_scale": layer.w_scale.detach().cpu().numpy(),
                        "b": np.ascontiguousarray(b.transpose(1, 2, 0))})
     return {"layers": layers}
+
+
+def value_from_jax(tree) -> dict[str, torch.Tensor]:
+    """A JAX-layout value tree (``{"layers": [{"w", "b"}, ...],
+    "head_conv": {"w", "b"}, "dense1": {"w" (in, out), "b"}, "dense2":
+    ...}``) -> a ``ValueCNN`` state dict of float32 CPU tensors: the convs
+    as the policy net's, the dense weights transposed to (out, in)."""
+    state = params_from_jax(tree)
+    head = params_from_jax({"layers": [tree["head_conv"]]})
+    state["head_conv.weight"] = head["layers.0.weight"]
+    state["head_conv.bias"] = head["layers.0.bias"]
+    for name in ("dense1", "dense2"):
+        w = np.asarray(tree[name]["w"], dtype=np.float32)
+        state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w.T))
+        state[f"{name}.bias"] = torch.from_numpy(
+            np.array(tree[name]["b"], dtype=np.float32))
+    return state
+
+
+def value_to_jax(model) -> dict:
+    """A ``ValueCNN`` -> the JAX-layout value tree of float32 numpy
+    arrays."""
+    named = dict(model.named_parameters())
+    tree = _named_to_jax({k: v for k, v in named.items()
+                          if k.startswith("layers.")})
+    tree["head_conv"] = _named_to_jax({
+        "layers.0.weight": named["head_conv.weight"],
+        "layers.0.bias": named["head_conv.bias"]})["layers"][0]
+    for name in ("dense1", "dense2"):
+        tree[name] = {
+            "w": np.ascontiguousarray(
+                named[f"{name}.weight"].detach().cpu().numpy().T),
+            "b": named[f"{name}.bias"].detach().cpu().numpy()}
+    return tree
 
 
 def model_from_jax(tree, cfg: ModelConfig, device="cuda") -> PolicyCNN:

@@ -1,8 +1,9 @@
-"""Batched policy inference (the serving path), in PyTorch.
+"""Batched policy and value inference (the serving path), in PyTorch.
 
 The port of ``deepgo_tpu/models/serving.py``: forwards from packed records
 to move log-probabilities and ranked moves, loadable straight from a
-checkpoint, and the unfused dihedral ensemble ``make_sym_policy_fn``.
+checkpoint, the unfused dihedral ensemble ``make_sym_policy_fn``, and the
+value net's win-probability forward ``make_value_fn`` / ``load_value``.
 Numpy in, numpy out, like the JAX forwards, so the serving engine
 (``deepgo_tpu_torch.serving``) drives them unchanged.
 
@@ -22,7 +23,7 @@ from .. import NUM_POINTS, resolve_device
 from ..experiments import checkpoint as ckpt
 from ..ops import expand_planes, expand_planes_sym
 from ..ops.augment import _TARGET_MAP_NP, NUM_SYMMETRIES, table
-from . import policy_cnn
+from . import convert, policy_cnn, value_cnn
 
 
 def inputs_on(device: torch.device, packed, player, rank
@@ -121,6 +122,49 @@ def make_sym_policy_fn(cfg: policy_cnn.ModelConfig, device="cuda"):
         return torch.log(back.mean(dim=0) + 1e-30).cpu().numpy()
 
     return predict
+
+
+def make_value_fn(cfg: value_cnn.ValueConfig, device="cuda"):
+    """win_prob(params, packed, player, rank) -> (B,) float32 P(side to
+    move wins), the value-net twin of ``make_log_prob_fn``: the expansion
+    (the CUDA kernel on the card, the plain version on the CPU), the
+    ``ValueCNN`` of ``cfg`` on ``device``, a float32 sigmoid. Row-
+    independent, so the serving engine batches it unchanged."""
+    device = resolve_device(device)
+
+    @torch.inference_mode()
+    def win_prob(params: value_cnn.ValueCNN, packed, player, rank
+                 ) -> np.ndarray:
+        check_model(params, cfg)
+        planes = expand_planes(*inputs_on(device, packed, player, rank),
+                               dtype=cfg.torch_dtype)
+        return torch.sigmoid(params(planes)).cpu().numpy()
+
+    return win_prob
+
+
+def load_value(checkpoint_path: str, device="cuda"):
+    """(win_prob_fn, model, value_cfg) from a value checkpoint
+    (``kind="value"``, as the JAX package's ``tools/train_value.py`` writes
+    it), with the model on ``device``. Raises ``CheckpointError`` for a
+    corrupt file, another kind of checkpoint, or weights that do not fit
+    the config."""
+    device = resolve_device(device)
+    meta, p_leaves, _ = ckpt.load_checkpoint(checkpoint_path)
+    if meta.get("kind") != "value":
+        raise ckpt.CheckpointError(
+            checkpoint_path, f"not a value checkpoint: kind "
+                             f"{meta.get('kind')!r}")
+    try:
+        cfg = value_cnn.ValueConfig(**meta["config"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise ckpt.CheckpointError(
+            checkpoint_path, f"config does not build a value net: {e}"
+        ) from e
+    model = value_cnn.ValueCNN(cfg)
+    model.load_state_dict(convert.value_from_jax(ckpt.unflatten_like(
+        convert.value_to_jax(model), p_leaves, checkpoint_path)))
+    return make_value_fn(cfg, device=device), model.to(device), cfg
 
 
 def load_policy(checkpoint_path: str, top_k: int = 5, device="cuda"):

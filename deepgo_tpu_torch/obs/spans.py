@@ -1,0 +1,183 @@
+"""Context-manager span tracing: named host regions with parent ids.
+
+The port's copy of ``deepgo_tpu/obs/spans.py`` without its
+``jax.profiler.TraceAnnotation`` bridge (a torch.profiler/NVTX bridge is
+left for later). A span is one named region of host work (a validation
+pass, a checkpoint save, an elastic recovery) with an id, a parent id
+(nesting is tracked per-context via ``contextvars``, so concurrently running
+threads build independent trees), a status, and exception capture. Each
+completed span is
+
+  * streamed to the configured JSONL trace sink as an ``obs_span`` event;
+  * folded into the process registry's ``deepgo_span_seconds`` histogram,
+    keyed by span name, so p50/p99 per stage are live;
+  * handed to every span listener (the flight recorder's ring).
+
+Spans deliberately do NOT wrap the per-step hot path: a JSONL line per
+training step would be measurable overhead. Spans are for the coarse
+stages whose individual occurrences matter.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import time
+import uuid
+
+from .registry import get_registry
+
+# the active span id for the current execution context; threads started
+# fresh see None (their spans root a new tree), which is the honest
+# answer — a loader worker's I/O is not causally inside one train window
+_current: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "deepgo_obs_span", default=None)
+
+_trace_sink = None  # process-wide span sink (a JsonlSink, or None)
+
+# completed-span listeners (the flight recorder's ring buffer rides here);
+# listeners receive the same record dict the sink gets and must never be
+# able to break a traced region — exceptions are swallowed per listener
+_listeners: list = []
+
+
+def add_span_listener(fn) -> None:
+    """Register ``fn(record: dict)`` to observe every completed span."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def remove_span_listener(fn) -> None:
+    try:
+        _listeners.remove(fn)
+    except ValueError:
+        pass
+
+
+def set_trace_sink(sink) -> None:
+    """Install the process-wide span sink (``None`` disables streaming).
+    The registry histogram stays active either way — spans are cheap
+    enough to always aggregate."""
+    global _trace_sink
+    _trace_sink = sink
+
+
+def get_trace_sink():
+    return _trace_sink
+
+
+@contextlib.contextmanager
+def trace_to(sink):
+    """Scoped sink installation: the experiment's train() wraps itself in
+    ``trace_to(JsonlSink(<run>/trace.jsonl))`` so spans stream to the run
+    directory for exactly the duration of the run, with the previous sink
+    (usually None) restored even when training raises."""
+    global _trace_sink
+    previous = _trace_sink
+    _trace_sink = sink
+    try:
+        yield sink
+    finally:
+        _trace_sink = previous
+
+
+def current_span_id() -> str | None:
+    return _current.get()
+
+
+def capture_context() -> str | None:
+    """Snapshot the current span parent for an explicit cross-thread
+    handoff.
+
+    ``contextvars`` do NOT cross thread boundaries: a span opened inside
+    a worker thread (the serving dispatcher, a loader thread) roots a new
+    tree even when the work is causally inside a submitting request's
+    span. The fix is an explicit handoff — the submitting thread calls
+    ``capture_context()`` and ships the value with the work item; the
+    worker wraps its processing in ``attach_context(captured)`` so spans
+    it opens parent under the submitter's span. Request tracing
+    (obs/tracing.py) uses the same capture to stamp each request's
+    ``parent_span``."""
+    return _current.get()
+
+
+@contextlib.contextmanager
+def attach_context(parent_id: str | None):
+    """Adopt a captured span context on THIS thread for the duration of
+    the block: spans opened inside parent under ``parent_id`` (from
+    ``capture_context()`` on the originating thread). Always restores the
+    previous context, even when the body raises — a worker that processes
+    many handoffs must not leak one request's context into the next."""
+    token = _current.set(parent_id)
+    try:
+        yield
+    finally:
+        _current.reset(token)
+
+
+class Span:
+    """One open span; exposed so the body can attach fields mid-flight
+    (``span.fields["step"] = n``) that land in the JSONL record."""
+
+    __slots__ = ("name", "span_id", "parent_id", "fields", "t0_wall",
+                 "t0_mono")
+
+    def __init__(self, name: str, parent_id: str | None, fields: dict):
+        self.name = name
+        self.span_id = uuid.uuid4().hex[:16]
+        self.parent_id = parent_id
+        self.fields = fields
+        self.t0_wall = time.time()
+        self.t0_mono = time.monotonic()
+
+
+@contextlib.contextmanager
+def span(name: str, registry=None, **fields):
+    """Trace one named region: ``with span("validate", step=n): ...``.
+
+    On exit the record carries span/parent ids, wall start time, duration,
+    ``status`` ("ok" | "error"), and the exception repr when the body
+    raised — the exception itself always propagates (observability must
+    never change control flow)."""
+    parent = _current.get()
+    s = Span(name, parent, dict(fields))
+    token = _current.set(s.span_id)
+    status, error = "ok", None
+    try:
+        yield s
+    except BaseException as e:
+        status, error = "error", repr(e)
+        raise
+    finally:
+        _current.reset(token)
+        duration = time.monotonic() - s.t0_mono
+        reg = registry or get_registry()
+        reg.histogram(
+            "deepgo_span_seconds",
+            "duration of named host spans (obs/spans.py)",
+        ).observe(duration, name=name, status=status)
+        sink = _trace_sink
+        if sink is not None or _listeners:
+            record = {
+                "name": s.name,
+                "span_id": s.span_id,
+                "parent_id": s.parent_id,
+                "t_start": s.t0_wall,
+                "duration_s": round(duration, 9),
+                "status": status,
+                **s.fields,
+            }
+            if error is not None:
+                record["error"] = error
+            if sink is not None:
+                try:
+                    sink.write("obs_span", **record)
+                except (OSError, ValueError):
+                    # a full disk or a concurrently closed sink must not
+                    # turn a healthy traced region into a crash
+                    pass
+            for fn in list(_listeners):
+                try:
+                    fn(dict(record))
+                except Exception:  # noqa: BLE001 — observers never raise out
+                    pass

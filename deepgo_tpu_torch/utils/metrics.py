@@ -3,46 +3,24 @@
 The port's copy of ``deepgo_tpu/utils/metrics.py``: a per-run append-only
 JSONL event stream (``MetricsWriter``: one ``{"kind", "time", ...}`` record
 per line, flushed per line, thread-safe, idempotent ``close()``) and a
-JSONL run registry with one line per completed run. The JAX
-``MetricsWriter`` is a shim over the ``JsonlSink`` of its ``obs`` package,
-whose size-based rotation no caller of the port sets; here it is one class
-without rotation, with a plain ``threading.Lock``.
+JSONL run registry with one line per completed run. As in the JAX package,
+``MetricsWriter`` is a thin shim over the ``JsonlSink`` of the ``obs``
+package (optional size-based rotation included).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import threading
-import time
+
+from ..obs.exporter import JsonlSink
 
 
-class MetricsWriter:
-    """Append-only JSONL metrics stream for one run."""
+class MetricsWriter(JsonlSink):
+    """Append-only JSONL metrics stream for one run (obs JsonlSink shim)."""
 
-    def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self.path = path
-        self._lock = threading.Lock()
-        self._f = open(path, "a", buffering=1)
-
-    def write(self, kind: str, **fields) -> None:
-        line = json.dumps({"kind": kind, "time": time.time(), **fields})
-        with self._lock:
-            if self._f.closed:
-                raise ValueError(f"MetricsWriter({self.path}) is closed")
-            self._f.write(line + "\n")
-
-    def close(self) -> None:
-        """Idempotent."""
-        with self._lock:
-            self._f.close()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
+    def __init__(self, path: str, max_bytes: int = 0, max_files: int = 5):
+        super().__init__(path, max_bytes=max_bytes, max_files=max_files)
 
 
 def append_registry(registry_path: str, record: dict) -> None:

@@ -35,7 +35,11 @@ def imported_roots(path):
 def test_port_sources_found():
     rel = {os.path.relpath(p, REPO) for p in port_sources()}
     assert "chip_smoke.py" in rel
-    assert os.path.join("deepgo_tpu_torch", "ops", "cuda_expand.py") in rel
+    for module in (("ops", "cuda_expand.py"), ("serving", "fleet.py"),
+                   ("serving", "supervisor.py"), ("serving", "cache.py"),
+                   ("obs", "tracing.py"), ("obs", "workload.py"),
+                   ("models", "value_cnn.py")):
+        assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 
 @pytest.mark.parametrize("path", port_sources(),
