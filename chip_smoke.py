@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training and game paths on one CUDA card and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit:
@@ -96,6 +96,30 @@ then, each phase failing the run on the first disagreement:
    launches = forwards; its float32 forward card vs CPU (TF32 off) within
    1e-4. Flight dumps, quarantine files and the checkpoint go to a
    temporary directory.
+9. games: whole games on ``full`` (bf16, phase 4's weights; phase 5's grid
+   net where said), each sub-path with the launch counts zeroed just before
+   it and read just after. (a) ``self_play`` of 64 games (120 moves at most,
+   temperature 0.5) through its private engine: the native rules engine
+   built, every game replays through the port's Python rules to the same
+   board, every game's SGF goes through the port's ``transcribe_game``
+   (native) to records that list its moves and, for the first 4 games,
+   equal the packed positions of the Python ``go.replay``; expansion
+   launches = the engine's forwards. (b) ``play_match`` of two
+   ``PolicyAgent``s (phase 4's net and the grid net) with no engine, at
+   temperature 0, 4 games after 4 shared random opening plies, played
+   twice: identical SGFs; launches = the direct forwards. (c) ``self_play``
+   of 32 games over a two-replica fleet: no request lost, launches = the
+   replicas' forwards. (d) A ``SearchAgent`` (64 simulations, waves of 16)
+   against a ``PolicyAgent``, both through one two-replica fleet with the
+   position cache, 2 games of at most 40 moves: every move legal, every
+   search completes its budget with no lost simulation; the cache's hit
+   rate, waves and wall per move printed. (e) The variant A/B arena: an
+   f32 agent against an int8+sym agent of the grid net on their shared
+   engines, 4 games of 60 moves: the f32 engine's forwards = expansion
+   launches, the int8+sym engine's = sym launches. (f) The synthetic
+   opening-heavy trace of ``data/sgf`` (512 requests) replayed open loop
+   into a two-replica fleet with the cache: every request answered, span
+   error, scheduling lag and hit rate printed.
 
 The last lines are a ``summary:`` JSON line of the paths' checks and
 timings, the card line from nvidia-smi, one ``kernels`` JSON object (each
@@ -105,10 +129,13 @@ CUDA it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import copy
+import cProfile
 import dataclasses
 import json
 import math
 import os
+import pstats
 import statistics
 import subprocess
 import sys
@@ -119,20 +146,27 @@ import time
 import numpy as np
 import torch
 
+from deepgo_tpu_torch import agents, match, selfplay, sgf
 from deepgo_tpu_torch.data.dataset import DatasetWriter, GoDataset
 from deepgo_tpu_torch.data.loader import (AsyncLoader, make_step_batch,
                                           to_device)
+from deepgo_tpu_torch.data.transcribe import transcribe_game
 from deepgo_tpu_torch.experiments import checkpoint as ckpt
 from deepgo_tpu_torch.experiments.experiment import (Experiment,
                                                      ExperimentConfig)
+from deepgo_tpu_torch.go import native, new_board, play, replay_positions
 from deepgo_tpu_torch.models import convert, policy_cnn, quant, value_cnn
 from deepgo_tpu_torch.models.serving import make_log_prob_fn, make_value_fn
 from deepgo_tpu_torch.obs import configure_flight
 from deepgo_tpu_torch.ops import _build, cuda_expand
 from deepgo_tpu_torch.ops import expand as plain_expand
+from deepgo_tpu_torch.search import SearchConfig
 from deepgo_tpu_torch.serving import (BucketLadder, CacheConfig,
                                       EngineConfig, FleetConfig,
-                                      SupervisorConfig, fleet_policy_engine,
+                                      SupervisorConfig, WorkloadReplayer,
+                                      build_synthetic_requests,
+                                      close_shared_engines,
+                                      fleet_policy_engine,
                                       fleet_value_engine, policy_engine,
                                       variant_spec, verify_variant)
 from deepgo_tpu_torch.training import (make_train_step, make_train_step_many,
@@ -206,6 +240,23 @@ RESTART_AT = 5        # replica 0's dispatcher dies at its 5th window
 RELOAD_BOARDS = 64    # boards checked after each reload
 SURGE_LADDER = (1, 8)  # keeps the CPU surge replica's forwards cheap
 SURGE_BOARDS = {"batch": 32, "interactive": 16, "failover": 8}
+# Phase 9, games on the card.
+SELFPLAY_GAMES, SELFPLAY_MOVES, SELFPLAY_TEMPERATURE = 64, 120, 0.5
+# games whose records are also held against the Python go.replay (the
+# Python summarize is far slower than the native one, which transcribes
+# all of them)
+PYTHON_REPLAY_GAMES = 4
+MATCH_GAMES, MATCH_MOVES, MATCH_OPENING = 4, 120, 4
+FLEET_SELFPLAY_GAMES, FLEET_SELFPLAY_MOVES = 32, 60
+SEARCH_SIMS, SEARCH_WAVE, SEARCH_GAMES, SEARCH_MOVES = 64, 16, 2, 40
+ARENA_GAMES, ARENA_MOVES = 4, 60
+REPLAY_REQUESTS = 512
+# host profiles (cProfile): selfplay runs of this many moves, and cold
+# searches at moves 0, 10, 20 and 30 of a search-match game
+PROFILE_MOVES = 20
+PROFILE_TOP = 8
+SGF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "sgf")
 
 
 def check(ok: bool, what: str) -> None:
@@ -1656,6 +1707,348 @@ def phase_fleet_path(model, grid) -> dict:
     return out
 
 
+def replay_rules(game) -> np.ndarray:
+    """A game's moves through the port's Python rules (``go.play`` raises
+    on an occupied point); returns the final stones."""
+    stones, age = new_board()
+    for m in game.moves:
+        play(stones, age, m.x, m.y, m.player)
+    return stones
+
+
+def check_games_legal(games, label) -> None:
+    for i, g in enumerate(games):
+        check(np.array_equal(replay_rules(g), g.stones),
+              f"{label}: game {i} replays through the Python rules to "
+              "another board")
+
+
+def checked_moves(agent, illegal: list):
+    """Record every move ``agent`` picks outside the legal mask it got."""
+    select = agent.select_moves
+
+    def select_moves(packed, players, legal, rng):
+        moves = select(packed, players, legal, rng)
+        illegal.extend((agent.name, int(m)) for i, m in enumerate(moves)
+                       if m >= 0 and not legal[i][m])
+        return moves
+
+    agent.select_moves = select_moves
+    return agent
+
+
+def fleet_hit_rate(fstats) -> float:
+    c = fstats["fleet"]["cache"]
+    lookups = c["hits"] + c["misses"] + c["coalesced"]
+    return (c["hits"] + c["coalesced"]) / lookups if lookups else 0.0
+
+
+def no_request_lost(fstats) -> bool:
+    """No shed and no failed or timed-out dispatch on any replica."""
+    return (sum(fstats["fleet"]["shed"].values()) == 0
+            and all(r["dispatch_failures"] == 0 and r["timeouts"] == 0
+                    for r in fstats["replicas"]))
+
+
+def host_profile(fn) -> dict:
+    """cProfile of one call of ``fn``: wall seconds and the PROFILE_TOP
+    functions by own time. On Python 3.12 cProfile rides
+    ``sys.monitoring`` and sees every thread, so the engines' dispatcher
+    threads count beside the game loop (a lock's ``acquire`` is time a
+    thread waited)."""
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    try:
+        fn()
+    finally:
+        prof.disable()
+    wall = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: kv[1][2], reverse=True)[:PROFILE_TOP]
+    return {"wall_s": wall, "top": [
+        {"function": f"{os.path.basename(path)}:{line}({name})",
+         "calls": calls, "own_s": own, "cum_s": cum}
+        for (path, line, name), (_, calls, own, cum, _) in rows]}
+
+
+def phase_selfplay(model, cfg, tmp) -> dict:
+    """9a: selfplay through a private engine on the ladder trimmed to the
+    game count; every game legal and transcribed by the port."""
+    check(native.batch_available(), "the native rules engine built")
+    cuda_expand.reset_launches()
+    games, stats = selfplay.self_play(
+        model, cfg, n_games=SELFPLAY_GAMES, max_moves=SELFPLAY_MOVES,
+        temperature=SELFPLAY_TEMPERATURE, seed=SEED, device=DEVICE)
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    eng = stats["engine"]
+    check(launches == eng["forwards"] > 0 and sym == 0,
+          f"selfplay: expansion launches {launches} != engine forwards "
+          f"{eng['forwards']}, or sym launches {sym}")
+    check(eng["dispatch_failures"] == 0 and eng["timeouts"] == 0,
+          "selfplay: every request answered")
+    check_games_legal(games, "selfplay")
+    positions = 0
+    for i, g in enumerate(games):
+        path = os.path.join(tmp, f"game_{i:04d}.sgf")
+        with open(path, "w") as f:
+            f.write(selfplay.to_sgf(g))
+        got = transcribe_game(path)
+        if not g.moves:
+            check(got is None, f"selfplay: game {i} has no moves")
+            continue
+        packed, meta = got
+        check(len(packed) == len(g.moves) and [tuple(r[:3]) for r in meta]
+              == [(m.player, m.x, m.y) for m in g.moves],
+              f"selfplay: game {i}'s transcription lists its moves")
+        if i < PYTHON_REPLAY_GAMES:
+            want = np.stack([p for p, _ in
+                             replay_positions(sgf.parse_file(path))])
+            check(np.array_equal(packed, want), f"selfplay: game {i}'s "
+                  "records != the packed positions of go.replay")
+        positions += len(packed)
+    profile = host_profile(lambda: selfplay.self_play(
+        model, cfg, n_games=SELFPLAY_GAMES, max_moves=PROFILE_MOVES,
+        temperature=SELFPLAY_TEMPERATURE, seed=SEED + 2, device=DEVICE))
+    print("selfplay host profile: " + json.dumps(profile), flush=True)
+    out = {"launches": launches, "forwards": eng["forwards"],
+           "positions": stats["positions"],
+           "positions_per_sec": stats["positions_per_sec"],
+           "seconds": stats["seconds"], "mean_moves": stats["mean_moves"],
+           "transcribed_records": positions,
+           "dispatches_per_rung": eng["bucket_hits"],
+           "engine_p50_ms": eng["p50_ms"], "engine_p99_ms": eng["p99_ms"]}
+    print("selfplay: " + json.dumps(out), flush=True)
+    out["host_profile"] = profile
+    return out
+
+
+def phase_direct_match(model, grid, cfg) -> dict:
+    """9b: two policy agents with no engine, at temperature 0, twice: the
+    same SGFs, since every ply's batch pads onto the same rung."""
+    forwards = [0]
+
+    def counted(agent):
+        predict = agent._predict
+
+        def forward(*args):
+            forwards[0] += 1
+            return predict(*args)
+
+        agent._predict = forward
+        return agent
+
+    def run():
+        a = counted(agents.PolicyAgent(model, cfg, name="full",
+                                       device=DEVICE))
+        b = counted(agents.PolicyAgent(grid, cfg, name="grid",
+                                       device=DEVICE))
+        games, _, stats = match.play_match(
+            a, b, n_games=MATCH_GAMES, max_moves=MATCH_MOVES, seed=SEED,
+            opening_plies=MATCH_OPENING)
+        return [selfplay.to_sgf(g) for g in games], stats
+
+    cuda_expand.reset_launches()
+    first, stats = run()
+    second, _ = run()
+    launches = cuda_expand.launches
+    check(first == second, "the direct-path match repeats bitwise")
+    check(launches == forwards[0] > 0, f"direct match: expansion launches "
+          f"{launches} != forwards {forwards[0]}")
+    out = {"launches": launches, "forwards": forwards[0],
+           "plies_per_run": stats["plies"],
+           "positions_per_sec": stats["positions_per_sec"],
+           "full_win_rate": stats["full_win_rate"]}
+    print("direct match: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_fleet_selfplay(model, cfg) -> dict:
+    """9c: selfplay over two supervised replicas behind the router."""
+    cuda_expand.reset_launches()
+    games, stats = selfplay.self_play(
+        model, cfg, n_games=FLEET_SELFPLAY_GAMES,
+        max_moves=FLEET_SELFPLAY_MOVES, temperature=SELFPLAY_TEMPERATURE,
+        seed=SEED + 1, fleet=2, device=DEVICE)
+    launches = cuda_expand.launches
+    fstats = stats["engine"]
+    forwards = replica_forwards(fstats)
+    check(launches == sum(forwards) and min(forwards) > 0,
+          f"fleet selfplay: expansion launches {launches} != replica "
+          f"forwards {forwards}")
+    check(no_request_lost(fstats), "fleet selfplay: no request lost")
+    check_games_legal(games, "fleet selfplay")
+    out = {"launches": launches, "replica_forwards": forwards,
+           "positions": stats["positions"],
+           "positions_per_sec": stats["positions_per_sec"],
+           "mean_moves": stats["mean_moves"],
+           "dispatches_per_rung": fleet_dispatches(fstats)}
+    print("fleet selfplay: " + json.dumps(out), flush=True)
+    out["host_profile"] = host_profile(lambda: selfplay.self_play(
+        model, cfg, n_games=FLEET_SELFPLAY_GAMES, max_moves=PROFILE_MOVES,
+        temperature=SELFPLAY_TEMPERATURE, seed=SEED + 3, fleet=2,
+        device=DEVICE))
+    print("fleet selfplay host profile: " + json.dumps(out["host_profile"]),
+          flush=True)
+    return out
+
+
+def phase_search(model, cfg) -> dict:
+    """9d: a PUCT search agent against a policy agent, both through one
+    two-replica fleet with the position cache."""
+    fleet = fleet_policy_engine(model, cfg, replicas=2,
+                                config=EngineConfig(max_wait_ms=2.0),
+                                cache=CacheConfig(), device=DEVICE,
+                                name="search")
+    results, illegal = [], []
+    try:
+        cuda_expand.reset_launches()
+        fleet.warmup()
+        searcher = checked_moves(agents.SearchAgent(
+            model, cfg, simulations=SEARCH_SIMS, engine=fleet,
+            device=DEVICE, search_config=SearchConfig(
+                simulations=SEARCH_SIMS, wave_size=SEARCH_WAVE,
+                tier="interactive")), illegal)
+        search_one = searcher._search.search
+
+        def recorded(*args, **kw):
+            results.append(search_one(*args, **kw))
+            return results[-1]
+
+        searcher._search.search = recorded
+        policy = checked_moves(agents.PolicyAgent(
+            model, cfg, engine=fleet, device=DEVICE), illegal)
+        t0 = time.perf_counter()
+        games, _, stats = match.play_match(
+            searcher, policy, n_games=SEARCH_GAMES, max_moves=SEARCH_MOVES,
+            seed=SEED)
+        wall = time.perf_counter() - t0
+        cache = fleet.stats()  # before the cold searches below
+        # cold searches (a fresh table) of positions along game 0
+        cold = agents.SearchAgent(
+            model, cfg, simulations=SEARCH_SIMS, engine=fleet, device=DEVICE,
+            search_config=searcher.search_config)
+        probes, g = [], selfplay.GameState()
+        for i, m in enumerate(games[0].moves[:31]):
+            if i % 10 == 0:
+                probes.append(copy.deepcopy(g))
+            g.player = m.player
+            selfplay.apply_move(g, m.x, m.y)
+            g.player = 3 - m.player
+        profile = host_profile(lambda: [cold._search.search(p)
+                                        for p in probes])
+        profile["searches"] = len(probes)
+    finally:
+        fleet.close()
+    launches = cuda_expand.launches
+    fstats = fleet.stats()
+    check(not illegal, f"search match: illegal moves {illegal}")
+    check_games_legal(games, "search match")
+    check(bool(results) and all(
+        r.simulations + r.lost == SEARCH_SIMS and r.lost == 0
+        and not r.fallback for r in results),
+          "every search accounts for its full budget with nothing lost")
+    forwards = replica_forwards(fstats)
+    check(launches == sum(forwards), f"search fleet: expansion launches "
+          f"{launches} != replica forwards {forwards}")
+    check(no_request_lost(fstats), "search fleet: no request lost")
+    out = {"launches": launches, "replica_forwards": forwards,
+           "searches": len(results), "match_wall_s": wall,
+           "waves_per_move": statistics.mean(r.waves for r in results),
+           "wave_occupancy": statistics.mean(r.wave_occupancy
+                                             for r in results),
+           "search_wall_ms_per_move": 1e3 * statistics.mean(
+               r.duration_s for r in results),
+           "cache_hit_rate": fleet_hit_rate(cache),
+           "cache": cache["fleet"]["cache"],
+           "table": results[-1].tt,
+           "dispatches_per_rung": fleet_dispatches(fstats)}
+    print("search match: " + json.dumps(out), flush=True)
+    print("search host profile: " + json.dumps(profile), flush=True)
+    out["host_profile"] = profile
+    return out
+
+
+def phase_arena(grid, cfg) -> dict:
+    """9e: the variant A/B arena: an f32 agent against an int8+sym agent
+    of the grid net, each on its shared engine."""
+    f32 = agents._policy_engine_for(grid, cfg, True, variant="f32",
+                                    device=DEVICE)
+    q = agents._policy_engine_for(grid, cfg, True, variant="int8+sym",
+                                  device=DEVICE)
+    try:
+        a = agents.PolicyAgent(grid, cfg, name="grid", engine=f32,
+                               device=DEVICE)
+        b = agents.PolicyAgent(grid, cfg, name="grid+int8+sym", engine=q,
+                               device=DEVICE)
+        cuda_expand.reset_launches()
+        _, _, stats = match.play_match(a, b, n_games=ARENA_GAMES,
+                                       max_moves=ARENA_MOVES, seed=SEED)
+        launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+        forwards = {"f32": f32.stats()["forwards"],
+                    "int8+sym": q.stats()["forwards"]}
+    finally:
+        close_shared_engines()
+    check(launches == forwards["f32"] > 0 and sym == forwards["int8+sym"] > 0,
+          f"arena: expansion launches {launches} and sym launches {sym} != "
+          f"the engines' forwards {forwards}")
+    out = {"launches": launches, "sym_launches": sym, "forwards": forwards,
+           "grid_win_rate": stats["grid_win_rate"],
+           "truncated": stats["truncated"]}
+    print("arena: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_replay(model, cfg) -> dict:
+    """9f: the synthetic opening-heavy trace of data/sgf replayed open loop
+    into a two-replica fleet with the cache."""
+    items = build_synthetic_requests(SGF_DIR, requests=REPLAY_REQUESTS,
+                                     seed=SEED)
+    fleet = fleet_policy_engine(model, cfg, replicas=2,
+                                config=EngineConfig(max_wait_ms=2.0),
+                                cache=CacheConfig(), device=DEVICE,
+                                name="replay")
+    try:
+        cuda_expand.reset_launches()
+        fleet.warmup()
+        report = WorkloadReplayer(fleet, items).run()
+    finally:
+        fleet.close()
+    launches = cuda_expand.launches
+    fstats = fleet.stats()
+    forwards = replica_forwards(fstats)
+    check(report["outcomes"] == {"ok": len(items)},
+          f"replay: outcomes {report['outcomes']}")
+    check(launches == sum(forwards), f"replay fleet: expansion launches "
+          f"{launches} != replica forwards {forwards}")
+    out = {"launches": launches, "replica_forwards": forwards,
+           "cache_hit_rate": fleet_hit_rate(fstats),
+           "cache": fstats["fleet"]["cache"],
+           **{k: report[k] for k in ("requests", "target_span_s",
+                                     "actual_span_s", "span_error_frac",
+                                     "mean_lag_ms", "p99_lag_ms",
+                                     "fidelity_ok", "boards_per_sec",
+                                     "tiers")}}
+    print("workload replay: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_games_path(model, grid) -> dict:
+    """Phase 9: whole games on the card."""
+    cfg = policy_cnn.CONFIGS["full"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-games-") as tmp:
+        out = {"selfplay": phase_selfplay(model, cfg, tmp)}
+    out["direct_match"] = phase_direct_match(model, grid, cfg)
+    out["fleet_selfplay"] = phase_fleet_selfplay(model, cfg)
+    out["search"] = phase_search(model, cfg)
+    out["arena"] = phase_arena(grid, cfg)
+    out["replay"] = phase_replay(model, cfg)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 9: {out['seconds']:.2f} s", flush=True)
+    return out
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -1705,6 +2098,7 @@ def main() -> int:
         tuple(a[:CARD_VS_CPU_BOARDS] for a in var["boards"]))
     train = phase_train_path()
     fleet = phase_fleet_path(path["model"], var["model"])
+    games = phase_games_path(path["model"], var["model"])
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512
@@ -1720,14 +2114,21 @@ def main() -> int:
                       "fleet_reload": fleet["reload"]["launches"],
                       "fleet_mixed_f32": fleet["variants"]["expand_launches"],
                       "fleet_surge": fleet["surge"]["launches"],
-                      "value_fleet": fleet["value"]["launches"]},
+                      "value_fleet": fleet["value"]["launches"],
+                      "selfplay_engine": games["selfplay"]["launches"],
+                      "match_direct": games["direct_match"]["launches"],
+                      "selfplay_fleet": games["fleet_selfplay"]["launches"],
+                      "search_fleet": games["search"]["launches"],
+                      "arena_f32": games["arena"]["launches"],
+                      "replay_fleet": games["replay"]["launches"]},
                      kernel_rows, top_row(kernel_rows, 1)),
         kernel_entry("expand_planes_sym",
                      "deepgo_tpu/ops/pallas_expand.py:90",
                      {"serving_int8_sym": var["launches"],
                       "training": train["run"]["sym_launches"],
                       "fleet_mixed_int8_sym":
-                          fleet["variants"]["sym_launches"]},
+                          fleet["variants"]["sym_launches"],
+                      "arena_int8_sym": games["arena"]["sym_launches"]},
                      sym_rows, top_row(sym_rows, 8)),
     ]}
     print("summary: " + json.dumps({
@@ -1744,6 +2145,7 @@ def main() -> int:
         "train_path": train | {"run": {
             k: v for k, v in train["run"].items() if k != "validation"}},
         "fleet_path": fleet,
+        "games_path": games,
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -15,8 +15,8 @@ Sampling schemes:
   * ``winner``   uniform over positions whose side to move went on to win;
     needs the ``winner.npy`` sidecar.
 
-The port writes splits with ``DatasetWriter``; transcribing SGF files comes
-with the game-playing stack.
+The port writes splits with ``DatasetWriter``, and transcribes SGF files
+into them with ``data/transcribe.py``.
 """
 
 from __future__ import annotations

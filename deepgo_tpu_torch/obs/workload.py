@@ -29,8 +29,8 @@ arrive, how duplicated they are, and how bursty the arrival process is
     symmetry-dedup gain, popularity skew (top-k mass, Zipf fit),
     inter-arrival burstiness, tier/bucket/outcome mix, and the
     **projected cache hit rate**.
-  * the replay side (the JAX package's ``serving/replay.py``, not ported
-    yet) reads the same format.
+  * the replay side (``serving/replay.py``: ``WorkloadReplayer`` and the
+    synthetic opening-heavy generator) reads the same format.
 
 Capture layout: one directory holding ``workload.jsonl`` (the request
 stream) and ``positions.jsonl`` (the deduplicated position store), both

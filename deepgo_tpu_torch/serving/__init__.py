@@ -22,6 +22,8 @@ The port of ``deepgo_tpu/serving``:
     weight reload, priority tiers (interactive > selfplay > batch) shed
     cheapest first, hedging, outlier ejection, integrity checks, and the
     CUDA + CPU surge tier.
+  * replay.py — a captured or synthetic opening-heavy trace re-served
+    open-loop against an engine or fleet, with its fidelity report.
 
 The factories below wire the engines to the models. Each builds its
 forward ONCE and closes over it, so restarts, respawns and reloads reuse
@@ -47,6 +49,8 @@ from .resilience import (CircuitBreaker, CircuitOpen,  # noqa: F401
 from .cache import (CacheConfig, CacheKeyingError,  # noqa: F401
                     PositionCache)
 from .cache import simulate as simulate_cache  # noqa: F401
+from .replay import (WorkloadReplayer, build_synthetic_requests,  # noqa: F401
+                     load_trace, write_synthetic_capture)
 from .supervisor import SupervisedEngine, SupervisorConfig  # noqa: F401
 from .fleet import (TIERS, FailoverExhausted, FleetConfig,  # noqa: F401
                     FleetReloadError, FleetRouter, FleetUnavailable,

@@ -20,7 +20,11 @@ the same way; on the CPU one SGD or momentum update is bitwise equal to
 the JAX update under ``jax.jit``. Adagrad's ``r * g / sqrt(a + eps)`` stays
 a correctly rounded square root and division: XLA:CPU rewrites it to a
 product with its own approximate ``rsqrt``, which no PyTorch op
-reproduces, so there the two differ by an ulp or two.
+reproduces. Against a float64 step from the same float32 accumulator, the
+port's parameters stay within 3.5 ulps of |step| plus half an ulp of |p'|
+by construction (measured at most 2.29 ulps of |step| over 101 gradient
+draws on a 3 x 16 net), JAX's within 1.74 measured; the two packages
+differ by up to 3 ulps of |p| + |p'| (tests/test_torch_training.py).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port's experiment layer and checkpoint write side against the JAX
 package's.
 
-The bundled ``data/sgf`` splits are transcribed with the JAX package and
+The bundled ``data/sgf`` splits are transcribed with the port (its shards
+are byte-equal to the JAX package's, tests/test_torch_games.py) and
 both packages train on them at a tiny size (3 layers x 16 channels,
 float32, batch 8, ``loader_threads=0`` so the data stream is step-indexed
 and equal in both). Bars:
@@ -29,14 +30,15 @@ import torch
 import jax
 
 from conftest import REPO_ROOT
-from deepgo_tpu.data.transcribe import transcribe_split
 from deepgo_tpu.experiments import checkpoint as jax_ckpt
 from deepgo_tpu.experiments.experiment import Experiment as JaxExperiment
 from deepgo_tpu.experiments.experiment import \
     ExperimentConfig as JaxExperimentConfig
+from deepgo_tpu.obs import registry as jax_registry
 from deepgo_tpu.parallel import make_mesh, reshard
 from deepgo_tpu.training import optimizers as jax_opt
 
+from deepgo_tpu_torch.data.transcribe import transcribe_split
 from deepgo_tpu_torch.experiments import checkpoint as ckpt
 from deepgo_tpu_torch.experiments.experiment import (Experiment,
                                                      ExperimentConfig)
@@ -54,6 +56,18 @@ EWMA_RTOL = 1e-5
 PARAM_TOL = 1e-5
 EVAL_NLL_TOL = 1e-4
 TOP1_MARGIN = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_registry():
+    """The JAX Experiments here count into a metrics registry of their
+    own. The JAX package's process-wide one feeds the ``obs_snapshot`` of
+    every later JAX run in this worker, and tests/test_attribution.py holds
+    its run's train-step total to its own 30 steps."""
+    saved = jax_registry._default
+    jax_registry._default = jax_registry.MetricsRegistry()
+    yield
+    jax_registry._default = saved
 
 
 @pytest.fixture(scope="module")

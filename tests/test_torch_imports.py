@@ -38,7 +38,12 @@ def test_port_sources_found():
     for module in (("ops", "cuda_expand.py"), ("serving", "fleet.py"),
                    ("serving", "supervisor.py"), ("serving", "cache.py"),
                    ("obs", "tracing.py"), ("obs", "workload.py"),
-                   ("models", "value_cnn.py")):
+                   ("models", "value_cnn.py"), ("go", "board.py"),
+                   ("go", "native.py"), ("sgf.py",),
+                   ("data", "transcribe.py"), ("data", "split.py"),
+                   ("selfplay.py",), ("agents.py",), ("match.py",),
+                   ("arena.py",), ("search", "mcts.py"),
+                   ("serving", "replay.py")):
         assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 

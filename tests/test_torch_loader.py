@@ -1,7 +1,7 @@
 """The port's data path and its copies of the JAX package's helpers.
 
-The bundled ``data/sgf`` splits are transcribed with the JAX package (the
-port has no SGF reader yet) and read by both. The dataset, the sync loader
+The bundled ``data/sgf`` splits are transcribed with the port (byte-equal
+to the JAX package's shards, tests/test_torch_games.py) and read by both. The dataset, the sync loader
 and the host batch builders give bitwise the JAX package's arrays for the
 same seeds; ``DatasetWriter`` output is byte-equal. The copies under
 ``deepgo_tpu_torch/utils`` (atomicio, retry, faults, metrics, gitinfo)
@@ -21,7 +21,6 @@ import torch
 from conftest import REPO_ROOT
 from deepgo_tpu.data import dataset as jax_dataset
 from deepgo_tpu.data import loader as jax_loader
-from deepgo_tpu.data.transcribe import transcribe_split
 from deepgo_tpu.utils import atomicio as jax_atomicio
 from deepgo_tpu.utils import faults as jax_faults
 from deepgo_tpu.utils import gitinfo as jax_gitinfo
@@ -29,6 +28,7 @@ from deepgo_tpu.utils import metrics as jax_metrics
 from deepgo_tpu.utils import retry as jax_retry
 
 from deepgo_tpu_torch.data import dataset, loader
+from deepgo_tpu_torch.data.transcribe import transcribe_split
 from deepgo_tpu_torch.obs import get_registry
 from deepgo_tpu_torch.utils import atomicio, faults, gitinfo, metrics, retry
 
