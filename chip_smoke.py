@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and game paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, game and loop paths on one CUDA card and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit:
@@ -120,6 +120,33 @@ then, each phase failing the run on the first disagreement:
    opening-heavy trace of ``data/sgf`` (512 requests) replayed open loop
    into a two-replica fleet with the cache: every request answered, span
    error, scheduling lag and hit rate printed.
+10. loop, value training and sessions, each sub-path with the launch
+   counts zeroed just before it and read just after. (a)
+   ``ExpertIterationLoop`` on ``full`` (bf16) seeded from phase 4's
+   weights: 2 actors playing rounds of 8 games of at most 60 moves
+   through a two-replica fleet, the learner's 2 windows of 20 steps at
+   B = 256 (SGD 0.005) over a frozen extent of at least 512 positions,
+   and an 8-game gate that passes every challenger (threshold 0): no
+   component fatal, durable games = acked games, every buffered game
+   replays through the Python rules to its records, each gate's outcome
+   recorded, the fleet's rows bitwise the champion's direct forward
+   before each gate (after the learner's steps) and after each pass;
+   expansion launches = fleet forwards + learner steps + the gate's
+   direct forwards, each counted on its own. (b) A learner on ``full``
+   SIGKILLed mid-window (``kill:step@6``) in a deterministic child, and a
+   second child that resumes it and runs the same schedule uninterrupted:
+   equal window digests, and ``replay_window`` recomputes every window's
+   digest bitwise. (c) ``training.value.main`` on the card (``ValueCNN``
+   3 x 64 bf16, B = 256, 60 steps, SGD 0.005 with momentum 0.9) over a
+   synthetic split with a ``winner.npy`` sidecar: the validation loss is
+   finite and falls, expansion launches = steps + evaluations, a float32
+   value step card vs CPU (TF32 off) within 1e-5. (d) ``GameService``
+   over a one-replica card fleet on ``full``: 4 sessions in 4 threads, 12
+   client moves each answered on the interactive tier (launches = the
+   fleet's forwards, the reopened store holds the same games); the port's
+   ``sessions.child`` SIGKILLed after its 7th ack and rerun: every acked
+   move recovered, and the finished games' digests equal an uninterrupted
+   run's.
 
 The last lines are a ``summary:`` JSON line of the paths' checks and
 timings, the card line from nvidia-smi, one ``kernels`` JSON object (each
@@ -129,13 +156,17 @@ CUDA it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import cProfile
 import dataclasses
+import io
 import json
 import math
 import os
 import pstats
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -155,8 +186,13 @@ from deepgo_tpu_torch.experiments import checkpoint as ckpt
 from deepgo_tpu_torch.experiments.experiment import (Experiment,
                                                      ExperimentConfig)
 from deepgo_tpu_torch.go import native, new_board, play, replay_positions
+from deepgo_tpu_torch.loop import (ContinuousLearner, ExpertIterationLoop,
+                                   LoopConfig, ReplayBuffer, read_windows,
+                                   replay_window)
+from deepgo_tpu_torch.loop import gatekeeper as loop_gatekeeper
 from deepgo_tpu_torch.models import convert, policy_cnn, quant, value_cnn
-from deepgo_tpu_torch.models.serving import make_log_prob_fn, make_value_fn
+from deepgo_tpu_torch.models.serving import (load_policy, load_value,
+                                             make_log_prob_fn, make_value_fn)
 from deepgo_tpu_torch.obs import configure_flight
 from deepgo_tpu_torch.ops import _build, cuda_expand
 from deepgo_tpu_torch.ops import expand as plain_expand
@@ -167,8 +203,12 @@ from deepgo_tpu_torch.serving import (BucketLadder, CacheConfig,
                                       build_synthetic_requests,
                                       close_shared_engines,
                                       fleet_policy_engine,
-                                      fleet_value_engine, policy_engine,
-                                      variant_spec, verify_variant)
+                                      fleet_value_engine, ladder_for,
+                                      policy_engine, variant_spec,
+                                      verify_variant)
+from deepgo_tpu_torch.sessions import GameService, SessionStore
+from deepgo_tpu_torch.sessions import child as session_child
+from deepgo_tpu_torch.training import value as value_training
 from deepgo_tpu_torch.training import (make_train_step, make_train_step_many,
                                        sgd)
 from deepgo_tpu_torch.utils import digest, faults
@@ -257,6 +297,35 @@ PROFILE_MOVES = 20
 PROFILE_TOP = 8
 SGF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "sgf")
+# Phase 10, the expert-iteration loop, value training and sessions. The
+# loop's learner is the full config at phase 7's batch and rate; the gate
+# passes every challenger (threshold 0), so both windows drive a reload
+# (the CPU tests hold the rejection path).
+LOOP = dict(actors=2, fleet=2, games_per_round=8, max_moves=60,
+            steps_per_window=20, min_window_positions=512, gate_games=8,
+            gate_threshold=0.0, windows=2, stall_timeout_s=300.0)
+LOOP_LEARNER = dict(name="chip-smoke-loop", num_layers=12, channels=128,
+                    compute_dtype="bfloat16", batch_size=256,
+                    rate=TRAIN_RATE, seed=SEED)
+LOOP_PROBE_BOARDS = 32   # boards asked of the fleet around each gate
+# the deterministic learner schedule: windows of steps, games of moves
+# added before each window, and the step a SIGKILL lands on (window 2)
+DET_WINDOWS, DET_STEPS, DET_GAMES, DET_MOVES, DET_KILL_STEP = 3, 4, 8, 60, 6
+DET_MIN_POSITIONS = 256
+# value training on a synthetic split whose winner is the stronger side
+# (ranks 7-9 against 1-3): the rank planes carry the outcome, so the loss
+# can fall within VALUE_STEPS. At the trainer's default rate of 0.02 (with
+# momentum 0.9) the loss on this split did not fall in a CPU rehearsal at
+# B = 64 (it stayed at ln 2, or rose); at 0.005 it fell to 0.01.
+VALUE_GAMES = {"train": 40, "validation": 10}
+VALUE_STEPS, VALUE_BATCH, VALUE_VAL_SIZE, VALUE_RATE = 60, 256, 1000, 0.005
+VALUE_TIMED_STEPS = 20
+VALUE_CARD_VS_CPU_BATCH = 64
+# sessions: games x client moves, each answered by an engine reply; the
+# crash-resume child's games, moves and the ack it dies after
+SESSION_GAMES, SESSION_MOVES = 4, 12
+SESSION_CHILD = ("--games", "2", "--moves", "6", "--checkpoint-every", "8")
+SESSION_KILL_AFTER = 7
 
 
 def check(ok: bool, what: str) -> None:
@@ -1165,15 +1234,21 @@ def prefetch_losses(root: str, device_prefetch: int, calls: int = 3):
     return torch.cat(losses).cpu()
 
 
+def set_deterministic() -> None:
+    """Deterministic algorithms, set before CUDA starts: cuDNN's weight
+    gradients otherwise accumulate with atomics in varying order."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def deterministic_main(root: str) -> int:
     """The child process of phase 7: deterministic mode, set before CUDA
     starts. A resumed run equals an uninterrupted one bitwise; the loader's
     side-stream prefetch gives the losses of the inline copy; and the step
     times under determinism. Prints one ``deterministic:`` JSON line."""
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    set_deterministic()
     cfg = train_config(root, loader_threads=0, validation_interval=10_000,
                        validation_size=256)
     whole = Experiment(cfg, run_id="whole", device=DEVICE)
@@ -2049,6 +2124,497 @@ def phase_games_path(model, grid) -> dict:
     return out
 
 
+def loop_learner_config(**overrides) -> ExperimentConfig:
+    return ExperimentConfig(**{**LOOP_LEARNER, **overrides})
+
+
+def save_seed_checkpoint(model, path: str) -> None:
+    """``model``'s weights as a step-0 checkpoint of the loop's learner
+    config, in the JAX package's format."""
+    ckpt.save_checkpoint(path, convert.params_to_jax(model),
+                         convert.opt_state_to_jax(sgd(TRAIN_RATE).init(model)),
+                         {"id": "chip-smoke-seed", "step": 0,
+                          "validation_history": [],
+                          "config": loop_learner_config().to_dict()})
+
+
+class GateDirectAgent(agents.PolicyAgent):
+    """The gate's ``PolicyAgent``, counting the forwards it runs on the
+    direct path (the challenger's; the incumbent's go through the fleet)."""
+
+    forwards = 0
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        predict = self._predict
+
+        def counted(*a):
+            GateDirectAgent.forwards += 1
+            return predict(*a)
+
+        self._predict = counted
+
+
+def probe_fleet(fleet, boards):
+    """The fleet's rows for ``boards`` on the interactive tier, and the rung
+    each dispatched on."""
+    packed, player, rank = boards
+    futures = [fleet.submit(packed[i], int(player[i]), int(rank[i]),
+                            tier="interactive") for i in range(len(packed))]
+    return (np.stack([f.result() for f in futures]),
+            np.array([-1 if f.bucket is None else f.bucket
+                      for f in futures]))
+
+
+def watch_gates(loop, boards, tmp) -> list:
+    """Around every gate (in the gatekeeper's thread, the only one that
+    publishes a champion and reloads the fleet): a copy of the champion
+    file and the fleet's rows, before the gate and after a pass."""
+    probes = []
+    evaluate = loop.gatekeeper.evaluate
+
+    def probe(when):
+        snap = os.path.join(tmp, f"champion-{len(probes)}.npz")
+        shutil.copyfile(loop.champion_path, snap)
+        probes.append((when, snap, *probe_fleet(loop.fleet, boards)))
+
+    def watched(path):
+        probe("before")
+        record = evaluate(path)  # GateRejected leaves the fleet untouched
+        probe("after")
+        return record
+
+    loop.gatekeeper.evaluate = watched
+    return probes
+
+
+def check_probes(probes, cfg, boards) -> None:
+    """Each probe's rows bitwise the direct forward of the champion it was
+    taken under, at the rung each row dispatched on: before a gate, after
+    the learner trained its own module, the fleet still serves the old
+    champion; after a pass, the new one."""
+    ladder = ladder_for(LOOP["games_per_round"] * LOOP["actors"])
+    forward = make_log_prob_fn(cfg, device=DEVICE)
+    for when, snap, rows, buckets in probes:
+        _, champion, _ = load_policy(snap, device=DEVICE)
+        check(bool((buckets >= 0).all()), "every probe row dispatched")
+        for bucket in np.unique(buckets):
+            idx = np.flatnonzero(buckets == bucket)
+            check(np.array_equal(rows[idx], direct(
+                forward, champion, ladder, boards, idx, int(bucket))),
+                f"loop fleet rows {when} a gate at rung {bucket} != the "
+                "champion's direct forward bitwise")
+
+
+def check_buffer_games(buffer_dir: str) -> dict:
+    """Every game in the buffer replays through the port's Python rules
+    (``play`` raises on an occupied point) with each record's stones
+    channel the board before its move."""
+    buffer = ReplayBuffer(buffer_dir)
+    buffer.seal()
+    lo, hi, _ = buffer.extent()
+    view = buffer.view(lo, hi)
+    for start, count in view.game_ranges:
+        packed, player, _, target = view.batch_at(np.arange(start,
+                                                            start + count))
+        stones, age = new_board()
+        for i in range(count):
+            check(np.array_equal(packed[i, 0], stones),
+                  f"loop game at {start}: record {i} is not the board "
+                  "before its move")
+            play(stones, age, int(target[i]) // 19, int(target[i]) % 19,
+                 int(player[i]))
+    return {"games": view.num_games, "positions": hi - lo}
+
+
+def phase_loop(model, tmp) -> dict:
+    """10a: ``ExpertIterationLoop`` on ``full`` from phase 4's weights:
+    actors through a two-replica fleet, the learner's windows, the gate."""
+    cfg = policy_cnn.CONFIGS["full"]
+    seed = os.path.join(tmp, "seed.npz")
+    save_seed_checkpoint(model, seed)
+    run_dir = os.path.join(tmp, "loop")
+    loop = ExpertIterationLoop(run_dir, LoopConfig(**LOOP, seed=SEED),
+                               loop_learner_config(), seed_checkpoint=seed,
+                               device=DEVICE)
+    boards = serving_boards(np.random.default_rng(SEED + 10),
+                            LOOP_PROBE_BOARDS)
+    probes = watch_gates(loop, boards, tmp)
+    step0 = loop.learner.step
+    GateDirectAgent.forwards = 0
+    loop_gatekeeper.PolicyAgent = GateDirectAgent
+    try:
+        cuda_expand.reset_launches()
+        t0 = time.perf_counter()
+        summary = loop.run()
+        seconds = time.perf_counter() - t0
+        launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    finally:
+        loop_gatekeeper.PolicyAgent = agents.PolicyAgent
+    fstats = loop.fleet.stats()
+    by_path = {"loop_fleet": sum(replica_forwards(fstats)),
+               "loop_learner": summary["learner_step"] - step0,
+               "loop_gate_direct": GateDirectAgent.forwards}
+    check(summary["fatal"] == {} and not summary["component_restarts"],
+          f"loop: fatal {summary['fatal']}, restarts "
+          f"{summary['component_restarts']}")
+    check(summary["windows_trained"] == LOOP["windows"],
+          f"loop: {summary['windows_trained']} windows")
+    check(summary["games_acked"] == summary["games_durable"] > 0,
+          f"loop: acked {summary['games_acked']} != durable "
+          f"{summary['games_durable']}")
+    check(by_path["loop_learner"]
+          == LOOP["windows"] * LOOP["steps_per_window"], "learner steps")
+    check(launches == sum(by_path.values()) and sym == 0
+          and min(by_path.values()) > 0,
+          f"loop: expansion launches {launches} != {by_path}, or sym "
+          f"launches {sym}")
+    events = read_jsonl(os.path.join(run_dir, "loop.jsonl"))
+    gates = [e for e in events if e["kind"] == "loop_gate"]
+    check(len(gates) == summary["gates_passed"] + summary["gates_rejected"]
+          == LOOP["windows"], f"loop: gate outcomes {gates}")
+    check(len(probes) == 2 * summary["gates_passed"]
+          + summary["gates_rejected"], "a probe around every gate")
+    check_probes(probes, cfg, boards)
+    games = check_buffer_games(loop.buffer.dir)
+    windows = read_windows(os.path.join(run_dir, "learner"))
+    rounds = [e for e in events if e["kind"] == "loop_actor_round"]
+    out = {"launches": launches, "launches_by_path": by_path,
+           "seconds": seconds, "games_acked": summary["games_acked"],
+           "buffer": games, "gates": [
+               {k: g[k] for k in ("outcome", "win_rate", "seconds")}
+               for g in gates],
+           "windows": [{k: w[k] for k in ("window", "extent", "loss",
+                                          "ewma", "seconds")}
+                       for w in windows],
+           "learner_ms_per_step": [1e3 * w["seconds"]
+                                   / LOOP["steps_per_window"]
+                                   for w in windows],
+           "actor_positions_per_sec": [r["positions_per_sec"]
+                                       for r in rounds],
+           "fleet_dispatches_per_rung": fleet_dispatches(fstats),
+           "champion_step": summary["champion_step"]}
+    print("loop: " + json.dumps(out), flush=True)
+    return out
+
+
+def det_game(gid: int):
+    """Random records of game ``gid`` of the deterministic schedule: a pure
+    function of the gid, so a rerun ingests the same games."""
+    rng = np.random.default_rng((SEED, 10_000 + gid))
+    packed, player, rank = random_records(rng, DET_MOVES)
+    target = rng.integers(0, 361, DET_MOVES)
+    meta = np.stack([player, target // 19, target % 19, rank, rank,
+                     np.zeros_like(player)], axis=1).astype(np.int32)
+    return packed, meta
+
+
+def det_learner_run(root: str):
+    """The deterministic learner schedule in ``root`` (resuming whatever a
+    killed run left): before window w the buffer grows to DET_GAMES * w
+    games, a function of durable state only, then the window trains."""
+    buffer = ReplayBuffer(os.path.join(root, "buf"), segment_games=4)
+    learner = ContinuousLearner(
+        buffer, os.path.join(root, "run"), loop_learner_config(),
+        steps_per_window=DET_STEPS, min_window_positions=DET_MIN_POSITIONS,
+        device=DEVICE)
+    while learner.window < DET_WINDOWS:
+        target = DET_GAMES * (learner.window + 1)
+        while buffer.total_games < target:
+            buffer.ingest_game(*det_game(buffer.total_games),
+                               winner=1 + buffer.total_games % 2)
+        learner.train_window()
+    return buffer, read_windows(os.path.join(root, "run"))
+
+
+def loop_witness_main(killed: str, clean: str) -> int:
+    """The child of phase 10b that reruns a killed learner and a clean one
+    in deterministic mode and recomputes every window offline. Prints one
+    ``loop-deterministic:`` JSON line."""
+    set_deterministic()
+    t0 = time.perf_counter()
+    out = {}
+    for name, root in (("killed", killed), ("clean", clean)):
+        buffer, records = det_learner_run(root)
+        witness = [replay_window(os.path.join(root, "run"), buffer, r,
+                                 device=DEVICE) == r["digest"]
+                   for r in records]
+        out[name] = {"digests": [r["digest"] for r in records],
+                     "steps": [[r["step0"], r["step1"]] for r in records],
+                     "witness": witness}
+    out["resume_bitwise"] = out["killed"]["digests"] == \
+        out["clean"]["digests"]
+    out["seconds"] = time.perf_counter() - t0
+    print("loop-deterministic: " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_loop_deterministic(tmp) -> dict:
+    """10b: a learner SIGKILLed mid-window (``kill:step@K``) in a
+    deterministic child, then one more child that resumes it and runs an
+    uninterrupted schedule: the digests agree, and ``replay_window``
+    recomputes each live window's digest bitwise."""
+    t0 = time.perf_counter()
+    killed, clean = os.path.join(tmp, "killed"), os.path.join(tmp, "clean")
+    me = os.path.abspath(__file__)
+    env = {**os.environ, "DEEPGO_FAULTS": f"kill:step@{DET_KILL_STEP}"}
+    proc = subprocess.run([sys.executable, me, "--loop-learner", killed],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == -signal.SIGKILL, f"the learner child was not "
+          f"killed (exit {proc.returncode}): {proc.stderr[-3000:]}")
+    env.pop("DEEPGO_FAULTS")
+    proc = subprocess.run([sys.executable, me, "--loop-witness", killed,
+                           clean], env=env, capture_output=True, text=True,
+                          timeout=300)
+    print(proc.stdout.rstrip(), flush=True)
+    check(proc.returncode == 0, f"loop witness child exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("loop-deterministic: ")]
+    check(len(line) == 1, "the loop witness child printed its result")
+    out = json.loads(line[0].partition(": ")[2])
+    check(out["resume_bitwise"] and len(out["clean"]["digests"])
+          == DET_WINDOWS, "a SIGKILLed learner resumes to the "
+          "uninterrupted run's window digests")
+    check(all(out["killed"]["witness"]) and all(out["clean"]["witness"]),
+          "replay_window recomputes every window's digest bitwise")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def write_value_split(root: str) -> None:
+    """Synthetic splits with a ``winner.npy`` sidecar: random records as
+    phase 7 writes them, each game won by its stronger side."""
+    rng = np.random.default_rng(SEED + 11)
+    for split, games in VALUE_GAMES.items():
+        writer = DatasetWriter(os.path.join(root, split))
+        winners = []
+        for g in range(games):
+            packed, player, _ = random_records(rng, GAME_POSITIONS)
+            strong, weak = int(rng.integers(7, 10)), int(rng.integers(1, 4))
+            winner = int(rng.integers(1, 3))
+            black, white = (strong, weak) if winner == 1 else (weak, strong)
+            target = rng.integers(0, 361, GAME_POSITIONS)
+            meta = np.stack([player, target // 19, target % 19,
+                             np.full_like(player, black),
+                             np.full_like(player, white),
+                             np.zeros_like(player)], axis=1)
+            writer.add_game(f"{split}-{g:03d}", packed, meta)
+            winners.append(np.full(GAME_POSITIONS, winner, np.int8))
+        check(writer.finalize() == games * GAME_POSITIONS, f"{split} split")
+        np.save(os.path.join(root, split, "winner.npy"),
+                np.concatenate(winners))
+
+
+def value_step_card_vs_cpu(root: str) -> dict:
+    """One float32 value step (TF32 off) on the card against the CPU."""
+    cfg = value_cnn.ValueConfig(compute_dtype="float32")
+    ds = GoDataset(root, "train")
+    ix = value_training.decided_indices(ds)
+    host = value_training.gather(ds, np.random.default_rng(SEED).choice(
+        ix, size=VALUE_CARD_VS_CPU_BATCH))
+    out = {}
+    for device in (DEVICE, "cpu"):
+        opt = sgd(VALUE_RATE, 0.0, 0.9)
+        model = value_cnn.init(torch.Generator().manual_seed(SEED), cfg,
+                               device=device)
+        step, _ = value_training.make_step(cfg, opt)
+        model, _, loss = step(model, opt.init(model),
+                              *value_training.to_tensors(host, device))
+        out[device] = (float(loss), [p.detach().cpu()
+                                     for p in model.parameters()])
+    loss_err = abs(out[DEVICE][0] - out["cpu"][0])
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(out[DEVICE][1], out["cpu"][1]))
+    print(f"value step card vs CPU, float32 B={VALUE_CARD_VS_CPU_BATCH} "
+          f"with TF32 off: loss |diff| {loss_err:.3g}, updated params "
+          f"max-abs {param_err:.3g} (tolerance {STEP_CARD_VS_CPU_TOL})",
+          flush=True)
+    check(loss_err <= STEP_CARD_VS_CPU_TOL
+          and param_err <= STEP_CARD_VS_CPU_TOL,
+          "float32 value step card vs CPU")
+    return {"loss_abs_err": loss_err, "param_max_abs": param_err}
+
+
+def time_value_steps(root: str) -> float:
+    """Wall ms per bf16 value step at VALUE_BATCH, over VALUE_TIMED_STEPS
+    steps after a warm-up, ending in a synchronize."""
+    cfg = value_cnn.ValueConfig()
+    ds = GoDataset(root, "train")
+    ix = value_training.decided_indices(ds)
+    rng = np.random.default_rng(SEED + 1)
+    batches = [value_training.to_tensors(value_training.gather(
+        ds, rng.choice(ix, size=VALUE_BATCH)), DEVICE)
+        for _ in range(VALUE_TIMED_STEPS + 1)]
+    opt = sgd(VALUE_RATE, 0.0, 0.9)
+    model = value_cnn.init(torch.Generator().manual_seed(SEED), cfg,
+                           device=DEVICE)
+    state = opt.init(model)
+    step, _ = value_training.make_step(cfg, opt)
+    model, state, _ = step(model, state, *batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        model, state, _ = step(model, state, *b)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / VALUE_TIMED_STEPS
+
+
+def phase_value(tmp) -> dict:
+    """10c: the port's value trainer (``training.value.main``) on the card:
+    ``ValueCNN`` 3 x 64 bf16, B = 256, VALUE_STEPS steps."""
+    root = os.path.join(tmp, "value-data")
+    write_value_split(root)
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        result = value_training.main([
+            "--data-root", root, "--iters", str(VALUE_STEPS),
+            "--batch-size", str(VALUE_BATCH), "--rate", str(VALUE_RATE),
+            "--val-interval", "20",
+            "--val-size", str(VALUE_VAL_SIZE), "--print-interval", "10",
+            "--out", os.path.join(tmp, "value-run"), "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    history = result["history"]
+    print("value training: " + " | ".join(log.getvalue().splitlines()),
+          flush=True)
+    check(launches == VALUE_STEPS + len(history) and sym == 0,
+          f"value training: expansion launches {launches} != "
+          f"{VALUE_STEPS} steps + {len(history)} evaluations")
+    losses = [h["val_loss"] for h in history]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"value validation loss finite and falling: {losses}")
+    _, vmodel, _ = load_value(result["path"], device=DEVICE)
+    out = {"launches": launches, "history": history, "seconds": seconds,
+           "checkpoint_params": sum(p.numel() for p in vmodel.parameters()),
+           "card_vs_cpu": value_step_card_vs_cpu(root),
+           "ms_per_step": time_value_steps(root)}
+    print("value: " + json.dumps(out), flush=True)
+    return out
+
+
+def session_protocol(stdout: str, key: str) -> list:
+    return [line.split()[1:] for line in stdout.splitlines()
+            if line.startswith(key + " ")]
+
+
+def play_sessions(service) -> list:
+    """SESSION_GAMES sessions, one thread each, of SESSION_MOVES client
+    moves (a seeded preference order over the board) each answered by an
+    engine reply; returns the replies' wall ms."""
+    reply_ms, errors = [], []
+
+    def session(s):
+        try:
+            sid = service.new_game(f"chip-{s}")
+            order = np.random.default_rng((SEED, s)).permutation(361)
+            for _ in range(SESSION_MOVES):
+                game = service.store.get(sid)
+                point = next(int(p) for p in order if game.check_move(
+                    int(p) // 19, int(p) % 19, game.to_play) is None)
+                service.play(sid, point // 19, point % 19, reply=False)
+                t0 = time.perf_counter()
+                service.engine_reply(sid)
+                reply_ms.append(1e3 * (time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 - reported by the check
+            errors.append(f"session {s}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=session, args=(s,))
+               for s in range(SESSION_GAMES)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"sessions: {errors}")
+    return reply_ms
+
+
+def phase_sessions(model, tmp) -> dict:
+    """10d: ``GameService`` over a one-replica card fleet on ``full``, then
+    the port's crash-resume child SIGKILLed after an ack and rerun."""
+    cfg = policy_cnn.CONFIGS["full"]
+    fleet = fleet_policy_engine(model, cfg, replicas=1,
+                                config=EngineConfig(buckets=(1, 8),
+                                                    max_wait_ms=1.0),
+                                device=DEVICE, name="sessions")
+    store_dir = os.path.join(tmp, "store")
+    service = GameService(fleet, SessionStore(store_dir,
+                                              checkpoint_every=16))
+    try:
+        cuda_expand.reset_launches()
+        fleet.warmup()
+        reply_ms = play_sessions(service)
+    finally:
+        fleet.close()
+    launches = cuda_expand.launches
+    forwards = sum(replica_forwards(fleet.stats()))
+    check(launches == forwards > 0 and cuda_expand.sym_launches == 0,
+          f"sessions: expansion launches {launches} != fleet forwards "
+          f"{forwards}")
+    check(len(reply_ms) == SESSION_GAMES * SESSION_MOVES
+          and service.replies == len(reply_ms), "sessions: every reply")
+    digests = {sid: g.digest() for sid, g in service.store.games.items()}
+    service.close()
+    reopened = SessionStore(store_dir)
+    check({sid: g.digest() for sid, g in reopened.games.items()}
+          == digests, "sessions: the reopened store holds the same games")
+    reopened.close(final_checkpoint=False)
+
+    t0 = time.perf_counter()
+    killed = os.path.join(tmp, "child-killed")
+    cmd = [sys.executable, "-m", "deepgo_tpu_torch.sessions.child",
+           "--store", killed, *SESSION_CHILD]
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(cmd + ["--kill-after-acks",
+                                 str(SESSION_KILL_AFTER)], cwd=here,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == -signal.SIGKILL, f"the session child was not "
+          f"killed (exit {proc.returncode}): {proc.stderr[-3000:]}")
+    acked = session_protocol(proc.stdout, "SESSION_ACK")
+    store = SessionStore(killed)
+    recovered = sum(len(g.moves) for g in store.games.values())
+    store.close(final_checkpoint=False)
+    check(len(acked) == SESSION_KILL_AFTER == recovered,
+          f"sessions child: {len(acked)} acks, {recovered} moves recovered")
+    proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"the resumed session child exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    resumed = session_protocol(proc.stdout, "SESSION_DIGEST")
+    with contextlib.redirect_stdout(io.StringIO()) as ref:
+        session_child.main(["--store", os.path.join(tmp, "child-clean"),
+                            *SESSION_CHILD, "--device", DEVICE])
+    reference = session_protocol(ref.getvalue(), "SESSION_DIGEST")
+    check(len(reference) == 2 and resumed == reference,
+          f"sessions child: resumed digests {resumed} != uninterrupted "
+          f"{reference}")
+    out = {"launches": launches, "forwards": forwards,
+           "replies": len(reply_ms),
+           "reply_p50_ms": float(np.percentile(reply_ms, 50)),
+           "reply_p99_ms": float(np.percentile(reply_ms, 99)),
+           "child_acks_before_kill": len(acked),
+           "child_seconds": time.perf_counter() - t0}
+    print("sessions: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_loop_path(model) -> dict:
+    """Phase 10: the expert-iteration loop, value training and durable
+    game sessions on the card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-loop-") as tmp:
+        out = {"loop": phase_loop(model, tmp),
+               "deterministic": phase_loop_deterministic(tmp),
+               "value": phase_value(tmp),
+               "sessions": phase_sessions(model, tmp)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 10: {out['seconds']:.2f} s", flush=True)
+    return out
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -2072,6 +2638,12 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--deterministic"] and len(sys.argv) == 3:
         return deterministic_main(sys.argv[2])
+    if sys.argv[1:2] == ["--loop-learner"] and len(sys.argv) == 3:
+        set_deterministic()
+        det_learner_run(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--loop-witness"] and len(sys.argv) == 4:
+        return loop_witness_main(sys.argv[2], sys.argv[3])
     t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2099,6 +2671,7 @@ def main() -> int:
     train = phase_train_path()
     fleet = phase_fleet_path(path["model"], var["model"])
     games = phase_games_path(path["model"], var["model"])
+    loop = phase_loop_path(path["model"])
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512
@@ -2120,7 +2693,10 @@ def main() -> int:
                       "selfplay_fleet": games["fleet_selfplay"]["launches"],
                       "search_fleet": games["search"]["launches"],
                       "arena_f32": games["arena"]["launches"],
-                      "replay_fleet": games["replay"]["launches"]},
+                      "replay_fleet": games["replay"]["launches"],
+                      **loop["loop"]["launches_by_path"],
+                      "value_training": loop["value"]["launches"],
+                      "sessions_fleet": loop["sessions"]["launches"]},
                      kernel_rows, top_row(kernel_rows, 1)),
         kernel_entry("expand_planes_sym",
                      "deepgo_tpu/ops/pallas_expand.py:90",
@@ -2146,6 +2722,7 @@ def main() -> int:
             k: v for k, v in train["run"].items() if k != "validation"}},
         "fleet_path": fleet,
         "games_path": games,
+        "loop_path": loop,
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

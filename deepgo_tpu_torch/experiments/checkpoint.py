@@ -292,6 +292,13 @@ def load_checkpoint(path: str, verify: bool = True):
     return meta, [arrays[k] for k in p_keys], [arrays[k] for k in o_keys]
 
 
+def load_meta(path: str) -> dict:
+    """Only the meta entry (config, step, ...): npz members load lazily,
+    so the weight arrays are never read."""
+    with _open_npz(path) as z:
+        return _read_meta(z, path)
+
+
 def verify_checkpoint(path: str) -> dict:
     """Full integrity pass; returns the meta, raises CheckpointError."""
     meta, _, _ = load_checkpoint(path, verify=True)

@@ -41,7 +41,7 @@ from ..models.convert import (opt_state_from_jax, opt_state_to_jax,
 from ..obs import get_registry
 from ..ops.wire import nibble_pack_np
 from ..training import make_eval_step, make_train_step, make_train_step_many
-from ..training.optimizers import OPTIMIZERS
+from ..training.optimizers import for_config
 from ..utils import faults
 from ..utils.atomicio import atomic_write
 from ..utils.gitinfo import git_sha
@@ -170,11 +170,7 @@ class Experiment:
             raise ValueError(f"wire_format must be auto|nibble|packed, "
                              f"got {cfg.wire_format!r}")
         self.model_cfg = cfg.model_config()
-        opt_fn = OPTIMIZERS[cfg.optimizer]
-        if cfg.optimizer == "sgd":
-            self.optimizer = opt_fn(cfg.rate, cfg.rate_decay, cfg.momentum)
-        else:
-            self.optimizer = opt_fn(cfg.rate)
+        self.optimizer = for_config(cfg)
         if self.model is None:
             self.model = policy_cnn.init(
                 torch.Generator().manual_seed(cfg.seed), self.model_cfg,

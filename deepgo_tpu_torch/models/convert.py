@@ -9,7 +9,8 @@ The JAX package keeps ``{"layers": [{"w": (k, k, c_in, c_out) HWIO,
 the same transposes and its ``rate`` as a float32 scalar. The value net's
 tree (``models/value_cnn.py``) adds ``head_conv`` (a conv like the
 policy's) and the dense layers ``dense1`` / ``dense2``, whose (in, out)
-weights become ``nn.Linear``'s (out, in). Both directions are transposes
+weights become ``nn.Linear``'s (out, in); an optimizer state over it maps
+through ``value_opt_state_to_jax``. Both directions are transposes
 only, so a round trip is bitwise.
 """
 
@@ -129,7 +130,20 @@ def value_from_jax(tree) -> dict[str, torch.Tensor]:
 def value_to_jax(model) -> dict:
     """A ``ValueCNN`` -> the JAX-layout value tree of float32 numpy
     arrays."""
-    named = dict(model.named_parameters())
+    return _value_named_to_jax(dict(model.named_parameters()))
+
+
+def value_opt_state_to_jax(state: dict) -> dict:
+    """An optimizer state over a ``ValueCNN``'s parameters -> the JAX
+    layout, numpy arrays."""
+    tree = {"rate": state["rate"].detach().cpu().numpy()}
+    for key in _OPT_TREES:
+        if key in state:
+            tree[key] = _value_named_to_jax(state[key])
+    return tree
+
+
+def _value_named_to_jax(named: dict[str, torch.Tensor]) -> dict:
     tree = _named_to_jax({k: v for k, v in named.items()
                           if k.startswith("layers.")})
     tree["head_conv"] = _named_to_jax({

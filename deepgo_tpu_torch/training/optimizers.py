@@ -109,3 +109,12 @@ def adagrad(rate: float, decay: float = 0.95, eps: float = 1e-10
 
 
 OPTIMIZERS = {"sgd": sgd, "adagrad": adagrad}
+
+
+def for_config(config) -> Optimizer:
+    """The optimizer an ``ExperimentConfig`` names: SGD with its rate decay
+    and momentum, or Adagrad at its rate."""
+    opt_fn = OPTIMIZERS[config.optimizer]
+    if config.optimizer == "sgd":
+        return opt_fn(config.rate, config.rate_decay, config.momentum)
+    return opt_fn(config.rate)

@@ -63,3 +63,9 @@ def atomic_write(path: str, mode: str = "wb"):
                 os.unlink(tmp)
             except OSError:
                 pass
+
+
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    """One-shot atomic replacement of ``path`` with ``data``."""
+    with atomic_write(path, "wb") as f:
+        f.write(data)

@@ -11,8 +11,10 @@ sites the port checks:
   ----             ---------------
   ckpt_write       inside the atomic checkpoint write (checkpoint.save_checkpoint)
   loader_io        the memmap gather in GoDataset.batch_at
-  train_step       just before a training step executes (experiment._train)
+  train_step       just before a training step executes (experiment._train,
+                   and each step of the loop's learner window)
   kill             after a training step completes, keyed on the step number
+                   (the experiment's and the loop learner's global step)
   dist_collective  host-side before every step call of an elastic run
   serving_dispatch the serving dispatcher loop, once per coalescing window,
                    OUTSIDE the per-batch containment — an injected fault
@@ -31,6 +33,24 @@ sites the port checks:
   fleet_reload     once per replica swap during a rolling weight reload —
                    a fault surfaces as a typed FleetReloadError while the
                    draining replica rejoins and the fleet keeps serving
+  loop_ingest      inside ReplayBuffer.ingest_game (loop/replay.py) —
+                   transients are absorbed by the bounded-jitter retry,
+                   hard faults kill the actor BEFORE the game is acked
+                   (the loop supervisor restarts it; acked games are
+                   already durable, so none are ever lost)
+  loop_gate        at the start of ArenaGatekeeper.evaluate — a hard
+                   fault kills the gatekeeper component; the service
+                   re-queues the challenger so the restarted gatekeeper
+                   re-gates it instead of dropping the window
+  session_wal      inside the session store's fsync'd WAL append
+                   (sessions/store.py), BEFORE the ack — transients are
+                   absorbed by the bounded retry, hard faults surface typed
+                   with the move un-acked and the in-memory game untouched
+  session_reply    per engine-reply attempt in the interactive game
+                   service (sessions/service.py), before the fleet
+                   submit — a transient burns one deadline tier and
+                   escalates to the next budget; a hard fault surfaces
+                   typed (the session state is unchanged either way)
 
 Every injected fault is a Python exception, a sleep or a perturbed host
 row at a fault site, never a device fault.

@@ -43,7 +43,10 @@ def test_port_sources_found():
                    ("data", "transcribe.py"), ("data", "split.py"),
                    ("selfplay.py",), ("agents.py",), ("match.py",),
                    ("arena.py",), ("search", "mcts.py"),
-                   ("serving", "replay.py")):
+                   ("serving", "replay.py"), ("loop", "learner.py"),
+                   ("loop", "service.py"), ("sessions", "store.py"),
+                   ("sessions", "child.py"), ("training", "value.py"),
+                   ("data", "winners.py")):
         assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 
