@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, game and loop paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, game, loop and parallel paths on CUDA cards and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit:
@@ -147,11 +147,36 @@ then, each phase failing the run on the first disagreement:
    ``sessions.child`` SIGKILLed after its 7th ack and rerun: every acked
    move recovered, and the finished games' digests equal an uninterrupted
    run's.
+11. parallel, each sub-path in a child process with the launch counts
+   zeroed just before it and read just after. (a) A float32 ``full``
+   ``Experiment`` (B = 64, SGD with momentum, 3 steps, step-indexed) in
+   deterministic mode, once outside any process group and once inside an
+   NCCL group of one rank (``parallel.distributed.initialize``): bitwise
+   equal, expansion launches = steps. (b) Two elastic hosts
+   (``parallel.elastic.run_elastic``) over one run directory on the one
+   card, ``full`` bf16 B = 256 with a checkpoint every 5-step window, host
+   1 SIGKILLed at step 7: the survivor detects the loss through the
+   heartbeat ledger, converges on the newest checkpoint and finishes; its
+   final checkpoint equals an uninterrupted host's bitwise (deterministic
+   mode); the ``ELASTIC_RECOVERY`` record (recovery latency, steps lost)
+   is printed.
+
+``--phases LIST`` (e.g. ``--phases 11``) runs only the listed phases of
+4-11 (and the phases their nets come from); 1-3 always run.
+``--phases 11 --cards 4`` is phase 11 on four cards instead, one NCCL rank
+per card (it exits 1 without four cards): the layouts 4 x 1, 2 x 2 and
+both with ZeRO on the float32 config of (a) at a global B = 64, each held
+to one card's run (loss rtol 1e-5, parameters rtol 1e-4 / atol 1e-6) and
+ZeRO bitwise equal to replicated; ``full`` bf16 data-parallel training at
+B = 1024 (256 a card, K = 10, 60 steps) beside one card at B = 256, with
+samples/s, wall per step, the all-reduce's device ms and the expansion
+launches of every rank; a 2 x 2 + ZeRO checkpoint restored under 4 x 1
+and 1 x 1 bitwise; ``nvidia-smi topo -m`` and every card's line.
 
 The last lines are a ``summary:`` JSON line of the paths' checks and
-timings, the card line from nvidia-smi, one ``kernels`` JSON object (each
-kernel's launches by path), and ``{"ok": true, "device": {...}}``. Without
-CUDA it exits 1 and prints no result.
+timings, the card line from nvidia-smi (every card's with ``--cards 4``),
+one ``kernels`` JSON object (each kernel's launches by path), and ``{"ok":
+true, "device": {...}}``. Without CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -167,6 +192,7 @@ import os
 import pstats
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -176,6 +202,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from deepgo_tpu_torch import agents, match, selfplay, sgf
 from deepgo_tpu_torch.data.dataset import DatasetWriter, GoDataset
@@ -196,6 +223,7 @@ from deepgo_tpu_torch.models.serving import (load_policy, load_value,
 from deepgo_tpu_torch.obs import configure_flight
 from deepgo_tpu_torch.ops import _build, cuda_expand
 from deepgo_tpu_torch.ops import expand as plain_expand
+from deepgo_tpu_torch.parallel import distributed, reshard
 from deepgo_tpu_torch.search import SearchConfig
 from deepgo_tpu_torch.serving import (BucketLadder, CacheConfig,
                                       EngineConfig, FleetConfig,
@@ -326,6 +354,36 @@ VALUE_CARD_VS_CPU_BATCH = 64
 SESSION_GAMES, SESSION_MOVES = 4, 12
 SESSION_CHILD = ("--games", "2", "--moves", "6", "--checkpoint-every", "8")
 SESSION_KILL_AFTER = 7
+# Phase 11, the parallel layer. The float32 full config of (a) and of the
+# four-card layouts: PAR_STEPS steps at a global B = 64, step-indexed, SGD
+# with momentum (a state for ZeRO to shard), no validation.
+PAR_STEPS = 3
+PAR_F32 = dict(compute_dtype="float32", batch_size=64, momentum=0.9,
+               steps_per_call=1, print_interval=PAR_STEPS,
+               validation_interval=10_000, loader_threads=0)
+# the four-card layouts: name -> (data, model, ZeRO), each held to one
+# card's run within tests/test_parallel.py's tolerances at full width and
+# PAR_GATE_LAYERS of full's 12 layers. Depth is cut for the gate because
+# float32 itself drifts with depth: on an H100 one card's float32 gradients
+# differ from float64 by up to 7e-6 of a leaf's largest value at 3 layers,
+# 8e-4 at 6 and 8e-2 at 12 (a per-position bias), and a layout that splits
+# the batch and the channels rounds otherwise; the 12-layer layouts are run
+# and recorded beside the gate, and f32_drift measures the drift each call
+PAR_LAYOUTS = {"4x1": (4, 1, False), "2x2": (2, 2, False),
+               "4x1+zero": (4, 1, True), "2x2+zero": (2, 2, True)}
+PAR_GATE_LAYERS = 3
+PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+PAR_CARDS = 4
+PAR_BATCH_PER_CARD = 256   # phase 7's B per card; DP = 4 trains B = 1024
+PAR_REPS = 20              # all-reduces between one pair of events
+# (b) the elastic two-host run: phase 7's config, step-indexed, a
+# checkpoint every 5-step window; host 1 dies at step 7, after the step-5
+# checkpoint; the survivor's miss budget is 0.5 s x 10.
+ELASTIC_RUN = dict(loader_threads=0, steps_per_call=1, print_interval=5,
+                   validation_interval=5, validation_size=256,
+                   keep_checkpoints=2)
+ELASTIC_ITERS, ELASTIC_KILL_STEP = 400, 7
+ELASTIC_BEAT_S, ELASTIC_MISSES = 0.5, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -340,6 +398,14 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()
     check(len(out) >= 1, "nvidia-smi printed no card")
     return out[0].strip()
+
+
+def all_cards() -> str:
+    """Every card's name and power limit, one line each."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
 
 
 def random_records(rng, b, players=(1, 2), ranks=(1, 9)):
@@ -1238,9 +1304,14 @@ def set_deterministic() -> None:
     """Deterministic algorithms, set before CUDA starts: cuDNN's weight
     gradients otherwise accumulate with atomics in varying order."""
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
+    deterministic(True)
     torch.backends.cudnn.benchmark = False
+
+
+def deterministic(on: bool) -> None:
+    """Deterministic algorithms on or off (after ``set_deterministic``)."""
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
 
 
 def deterministic_main(root: str) -> int:
@@ -2615,6 +2686,524 @@ def phase_loop_path(model) -> dict:
     return out
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_config(root: str, **overrides) -> ExperimentConfig:
+    """Phase 11's float32 ``full`` config: step-indexed loading (the
+    layouts train on exactly one card's batches), momentum for a state to
+    shard, no validation, no checkpoint but the ones asked for."""
+    return train_config(root, **{**PAR_F32, **overrides})
+
+
+def full_leaves(exp: Experiment) -> list:
+    """Every parameter and optimizer leaf of ``exp``, gathered to full host
+    arrays in the checkpoint's order (a collective on every rank)."""
+    params, state = reshard.gather_to_host(exp.model, exp.opt_state,
+                                           exp.placement)
+    return ckpt.tree_leaves(params) + ckpt.tree_leaves(state)
+
+
+def n_param_leaves(exp: Experiment) -> int:
+    return len(list(exp.model.parameters()))
+
+
+def bitwise(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def par_group_main(root: str) -> int:
+    """Phase 11(a)'s child: deterministic mode set before CUDA starts; the
+    float32 ``full`` Experiment for PAR_STEPS steps outside any process
+    group, then the same inside an NCCL group of one rank. Prints one
+    ``par-group:`` JSON line."""
+    set_deterministic()
+    cfg = par_config(root)
+    alone = Experiment(cfg, run_id="alone", device=DEVICE)
+    alone.run(PAR_STEPS)
+    distributed.initialize(f"tcp://localhost:{free_port()}", 1, 0,
+                           device=DEVICE)
+    try:
+        cuda_expand.reset_launches()
+        grouped = Experiment(cfg, run_id="grouped", device=DEVICE)
+        grouped.run(PAR_STEPS)
+        launches = cuda_expand.launches
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        check(grouped.mesh.device_mesh is not None
+              and torch.distributed.get_backend() == backend,
+              f"the grouped run is in an {backend} group")
+        same = (bitwise(full_leaves(alone), full_leaves(grouped))
+                and alone.ewma == grouped.ewma)
+    finally:
+        distributed.shutdown()
+    print(f"NCCL group of one rank vs no group, {PAR_STEPS} float32 steps: "
+          + ("bitwise equal" if same else "DIFFERENT"), flush=True)
+    check(same, "the grouped steps equal the ungrouped ones bitwise")
+    check(launches == PAR_STEPS, f"expansion launches {launches} != "
+          f"{PAR_STEPS} steps")
+    print("par-group: " + json.dumps({"bitwise": same, "launches": launches,
+                                      "device": str(grouped.device)}),
+          flush=True)
+    return 0
+
+
+def elastic_host_main(run_dir: str, root: str, host: int, hosts: int,
+                      iters: int) -> int:
+    """Phase 11(b)'s elastic host: deterministic mode set before CUDA
+    starts, then ``run_elastic`` over the shared ``run_dir``."""
+    from deepgo_tpu_torch.parallel.elastic import ElasticConfig, run_elastic
+
+    set_deterministic()
+    cuda_expand.reset_launches()
+    run_elastic(run_dir, iters,
+                overrides={**TRAIN_RUN, **ELASTIC_RUN, "data_root": root},
+                ecfg=ElasticConfig(process_id=host, expected_hosts=hosts,
+                                   heartbeat_interval_s=ELASTIC_BEAT_S,
+                                   miss_budget=ELASTIC_MISSES,
+                                   step_deadline_s=300.0),
+                device=DEVICE)
+    print(f"elastic-launches: {cuda_expand.launches}", flush=True)
+    return 0
+
+
+def start_host(run_dir: str, root: str, host: int, hosts: int,
+               faults_env: str | None = None) -> subprocess.Popen:
+    env = {k: v for k, v in os.environ.items() if k != "DEEPGO_FAULTS"}
+    if faults_env:
+        env["DEEPGO_FAULTS"] = faults_env
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--elastic-host", run_dir,
+         root, str(host), str(hosts), str(ELASTIC_ITERS)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def tagged(out: str, tag: str) -> list:
+    return [json.loads(line.partition(" ")[2]) for line in out.splitlines()
+            if line.startswith(tag + " ")]
+
+
+def phase_elastic(root: str) -> dict:
+    """Phase 11(b): two elastic hosts over one run directory on the one
+    card; host 1 is SIGKILLed at step ELASTIC_KILL_STEP, after the step-5
+    checkpoint. The survivor detects the loss, converges on the newest
+    checkpoint and finishes; its final checkpoint equals an uninterrupted
+    single host's bitwise."""
+    t0 = time.perf_counter()
+    shared = os.path.join(root, "elastic-fleet")
+    procs = [start_host(shared, root, 0, 2),
+             start_host(shared, root, 1, 2,
+                        f"kill:step@{ELASTIC_KILL_STEP}")]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600) + (proc.returncode,))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    (out0, err0, rc0), (_, err1, rc1) = outs
+    check(rc1 == -signal.SIGKILL, f"host 1 exited {rc1}, not by SIGKILL: "
+          f"{err1[-1500:]}")
+    check(rc0 == 0, f"the surviving host exited {rc0}: {err0[-3000:]}")
+    recs, done = tagged(out0, "ELASTIC_RECOVERY"), tagged(out0,
+                                                          "ELASTIC_DONE")
+    check(len(recs) == 1 and recs[0]["process_id"] == 1
+          and recs[0]["survivors"] == [0], f"one recovery from host 1's "
+          f"loss: {recs}")
+    check(done and done[-1]["final_step"] == ELASTIC_ITERS,
+          "the survivor reached the target step")
+    print("ELASTIC_RECOVERY " + json.dumps(recs[0]), flush=True)
+    clean_dir = os.path.join(root, "elastic-clean")
+    clean = start_host(clean_dir, root, 0, 1)
+    out_c, err_c = clean.communicate(timeout=600)
+    check(clean.returncode == 0, f"the clean host exited "
+          f"{clean.returncode}: {err_c[-3000:]}")
+    name = ckpt.checkpoint_name(ELASTIC_ITERS)
+    meta_s, p_s, o_s = ckpt.load_checkpoint(os.path.join(shared, name))
+    meta_c, p_c, o_c = ckpt.load_checkpoint(os.path.join(clean_dir, name))
+    same = bitwise(p_s + o_s, p_c + o_c) and meta_s["ewma"] == meta_c["ewma"]
+    print(f"elastic: survivor's step-{ELASTIC_ITERS} checkpoint vs an "
+          "uninterrupted host's: " + ("bitwise equal" if same else
+                                      "DIFFERENT"), flush=True)
+    check(same, "the survivor's final checkpoint is the clean run's")
+    launches = [int(line.split()[1]) for line in out0.splitlines()
+                if line.startswith("elastic-launches:")][0]
+    return {"recovery": recs[0], "survivor": done[-1],
+            "recovery_latency_s": recs[0]["recovery_latency_s"],
+            "steps_lost": recs[0]["steps_lost"], "bitwise": same,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def phase_group(root: str) -> dict:
+    """Phase 11(a), in a child for deterministic mode."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--par-group", root],
+        capture_output=True, text=True, timeout=600)
+    print(proc.stdout.rstrip(), flush=True)
+    check(proc.returncode == 0, f"par-group child exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    out = tagged(proc.stdout, "par-group:")[0]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_parallel() -> dict:
+    """Phase 11 on one card: (a) a process group of one rank, (b) the
+    elastic two-host run."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-par-") as root:
+        write_split(root)
+        out = {"group": phase_group(root), "elastic": phase_elastic(root)}
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 11 layouts run: 1x1 in an NCCL group of one rank, two "
+          "elastic hosts on one card; not run (they need --cards 4): "
+          + ", ".join(sorted(PAR_LAYOUTS)) + ", dp4-bf16, "
+          "reshard-2x2z-to-4x1, reshard-2x2z-to-1x1", flush=True)
+    print(f"phase 11: {out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def dp_throughput(root: str, batch: int, mesh_ranks: int) -> dict:
+    """``Experiment.run`` on ``full`` bf16 (phase 7's config at a global
+    batch of ``batch``, K = 10) over every rank of the group, or alone
+    (``mesh_ranks=1``, no group), after one warm-up call; samples/s, wall
+    per step and the expansion kernel's launches on this rank."""
+    cfg = train_config(root, batch_size=batch, validation_interval=10_000,
+                       keep_checkpoints=1, data_parallel=mesh_ranks)
+    exp = Experiment(cfg, run_id=f"dp{mesh_ranks}", device=DEVICE)
+    # one warm-up call: the first collective sets up NCCL's communicators
+    exp.run(TRAIN_RUN["steps_per_call"])
+    cuda_expand.reset_launches()
+    summary = exp.run(TRAIN_STEPS)
+    launches = cuda_expand.launches
+    check(launches == TRAIN_STEPS, f"expansion launches {launches} != "
+          f"{TRAIN_STEPS} steps")
+    return {"ranks": mesh_ranks, "global_batch": batch,
+            "samples_per_sec": summary["samples_per_sec"],
+            "wall_ms_per_step": summary["runtime"] * 1e3 / TRAIN_STEPS,
+            "launches": launches, "exp": exp}
+
+
+def profile_call(exp: Experiment, root: str) -> dict:
+    """Device ms per step of one K = 10 call of ``exp``'s step on its own
+    rows, in total and in NCCL kernels (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = exp.config
+    with AsyncLoader(GoDataset(root, cfg.train_split), cfg.batch_size,
+                     seed=cfg.seed + 1, num_threads=0, device=exp.device,
+                     stack=10, wire=exp.wire,
+                     shard=exp._data_shard()) as loader:
+        batch = loader.get()
+        exp.train_step_many(exp.model, exp.opt_state, loader.get())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exp.model, exp.opt_state, _ = exp.train_step_many(
+                exp.model, exp.opt_state, batch)
+            torch.cuda.synchronize()
+    total = nccl = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            total += ev.self_device_time_total
+            if "nccl" in ev.key.lower():
+                nccl += ev.self_device_time_total
+    return {"device_ms_per_step": total / 1e3 / 10,
+            "nccl_ms_per_step": nccl / 1e3 / 10}
+
+
+def time_all_reduce(numel: int, group) -> float:
+    """Device ms of one AVG all-reduce of ``numel`` float32 (CUDA events
+    around PAR_REPS back-to-back calls)."""
+    flat = torch.ones(numel, dtype=torch.float32, device=DEVICE)
+    for _ in range(3):
+        torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.AVG,
+                                     group=group)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(PAR_REPS):
+        torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.AVG,
+                                     group=group)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / PAR_REPS
+
+
+def layout_run(root: str, d: int, m: int, zero: bool,
+               layers: int = TRAIN_RUN["num_layers"]) -> dict:
+    exp = Experiment(par_config(root, data_parallel=d, tensor_parallel=m,
+                                zero_opt=zero, num_layers=layers),
+                     run_id=f"layout-{d}x{m}{'z' if zero else ''}-{layers}",
+                     device=DEVICE)
+    exp.init()
+    losses = record_losses(exp)
+    exp.run(PAR_STEPS)
+    leaves = full_leaves(exp)
+    n = n_param_leaves(exp)
+    return {"losses": torch.cat([x.reshape(-1) for x in losses]).tolist(),
+            "params": leaves[:n], "state": leaves[n:]}
+
+
+def f32_drift(root: str, layers: int) -> dict:
+    """On one card, the gradients of one forward and backward of ``full``
+    cut to ``layers`` layers (width kept) at PAR_F32's batch in float32,
+    against the same in float64: done whole, and split as the 2 x 2 layout
+    splits it (two halves of the batch, every hidden convolution as two
+    half-channel convolutions), its sums done here. The largest difference
+    of a leaf over the leaf's largest float64 value, the worst leaf's
+    name, and the loss's relative difference."""
+    cfg = dataclasses.replace(policy_cnn.CONFIGS["full"],
+                              compute_dtype="float32", num_layers=layers)
+    model = policy_cnn.init(torch.Generator().manual_seed(SEED), cfg,
+                            device=DEVICE)
+    batch = to_device(make_step_batch(GoDataset(root, "train"), SEED, 0,
+                                      PAR_F32["batch_size"]), DEVICE)
+    planes = plain_expand.expand_planes(
+        batch["packed"], batch["player"], batch["rank"],
+        dtype=torch.float32)
+    names = [n for n, _ in model.named_parameters()]
+
+    def step(dtype, split, rows):
+        leaves = [p.detach().to(dtype).requires_grad_(True)
+                  for p in model.parameters()]
+        x = planes[rows].to(dtype).permute(0, 3, 1, 2)
+        last = len(leaves) // 2 - 1
+        for i in range(last + 1):
+            w, b = leaves[2 * i], leaves[2 * i + 1]
+            pad = w.shape[-1] // 2
+            if split and i < last:
+                h = w.shape[0] // 2
+                x = torch.cat([F.conv2d(x, part, padding=pad)
+                               .permute(0, 2, 3, 1)
+                               for part in (w[:h], w[h:])],
+                              dim=3).permute(0, 3, 1, 2)
+            else:
+                x = F.conv2d(x, w, padding=pad)
+            x = x + b[None]
+            x = F.relu(x) if i < last else x
+        loss = F.nll_loss(F.log_softmax(x.reshape(x.shape[0], -1), -1),
+                          batch["target"][rows].long())
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach().double(), [g.double() for g in grads]
+
+    def run(dtype, split):
+        if not split:
+            return step(dtype, False, slice(None))
+        n = planes.shape[0] // 2
+        (l0, g0), (l1, g1) = (step(dtype, True, slice(0, n)),
+                              step(dtype, True, slice(n, 2 * n)))
+        return (l0 + l1) / 2, [(a + b) / 2 for a, b in zip(g0, g1)]
+
+    with torch.enable_grad():
+        ref_loss, ref = run(torch.float64, False)
+        out = {}
+        for name, split in (("one_card", False), ("2x2_split", True)):
+            loss, grads = run(torch.float32, split)
+            errs = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(grads, ref)]
+            worst = max(range(len(errs)), key=errs.__getitem__)
+            out[name] = {"grad_rel": errs[worst], "worst_leaf": names[worst],
+                         "loss_rel": float((loss - ref_loss).abs()
+                                           / ref_loss.abs())}
+    return out
+
+
+def leaf_errors(run: list, ref: list) -> dict:
+    """Max-abs difference, the worst leaf's index, and the largest
+    |a - b| / (atol + rtol |b|) (<= 1 is within tolerance)."""
+    diffs = [np.abs(a.astype(np.float64) - b) for a, b in zip(run, ref)]
+    worst = int(np.argmax([float(d.max()) for d in diffs]))
+    ratio = max(float((d / (PAR_PARAM_ATOL + PAR_PARAM_RTOL * np.abs(b)))
+                      .max()) for d, b in zip(diffs, ref))
+    return {"max_abs": float(diffs[worst].max()), "worst_leaf": worst,
+            "tolerance_ratio": ratio}
+
+
+def close_to(run: dict, ref: dict) -> dict:
+    """Losses within rtol and parameters within rtol / atol of
+    tests/test_parallel.py (what that test holds); the optimizer state's
+    differences are recorded beside them."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                       ref["losses"]))
+    params = leaf_errors(run["params"], ref["params"])
+    return {"ok": loss_err <= PAR_LOSS_RTOL
+            and params["tolerance_ratio"] <= 1.0,
+            "loss_rel_err": loss_err, "params": params,
+            "opt_state": leaf_errors(run["state"], ref["state"])}
+
+
+def par_rank_main(rank: int, n: int, port: int, root: str) -> int:
+    """One NCCL rank of the four-card phase 11. Rank 0 first runs the
+    one-card references outside any group. Prints one ``par-rank:`` JSON
+    line."""
+    set_deterministic()  # before CUDA starts; the timed runs turn it off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank}
+    if rank == 0:
+        torch.cuda.set_device(0)
+        out["f32_vs_f64"] = {layers: f32_drift(root, layers)
+                             for layers in (PAR_GATE_LAYERS, 6, 12)}
+        ref = layout_run(root, 1, 1, False, PAR_GATE_LAYERS)
+        ref_full = layout_run(root, 1, 1, False)
+        deterministic(False)
+        one = dp_throughput(root, PAR_BATCH_PER_CARD, 1)
+        one.pop("exp")
+        out["one_card"] = one
+        deterministic(True)
+    distributed.initialize(f"tcp://localhost:{port}", n, rank, device=DEVICE)
+    try:
+        runs, full = {}, {}
+        for name, (d, m, zero) in PAR_LAYOUTS.items():
+            runs[name] = layout_run(root, d, m, zero, PAR_GATE_LAYERS)
+            full[name] = layout_run(root, d, m, zero)
+        if rank == 0:
+            out["layouts"] = {name: close_to(run, ref)
+                              for name, run in runs.items()}
+            out["layouts_full_depth"] = {name: close_to(run, ref_full)
+                                         for name, run in full.items()}
+            out["zero_bitwise"] = {
+                f"{lay} {depth}": bitwise(
+                    group[lay]["params"] + group[lay]["state"],
+                    group[lay + "+zero"]["params"]
+                    + group[lay + "+zero"]["state"])
+                and group[lay]["losses"] == group[lay + "+zero"]["losses"]
+                for lay in ("4x1", "2x2")
+                for depth, group in (("cut", runs), ("full", full))}
+        # the 2 x 2 + ZeRO checkpoint, restored under 4 x 1
+        exp = Experiment(par_config(root, data_parallel=2,
+                                    tensor_parallel=2),
+                         run_id="reshard", device=DEVICE)
+        exp.run(PAR_STEPS)
+        path = exp.save()
+        _, p_leaves, o_leaves = ckpt.load_checkpoint(path)
+        back = Experiment.load(path, device=DEVICE,
+                               remesh={"data_parallel": 4,
+                                       "tensor_parallel": 1})
+        out["restore_4x1"] = bitwise(full_leaves(back), p_leaves + o_leaves)
+        out["restore_4x1_findings"] = len(back.last_restore_findings)
+        deterministic(False)
+        numel = sum(p.numel() for p in
+                    policy_cnn.PolicyCNN(policy_cnn.CONFIGS["full"])
+                    .parameters()) + 1
+        out["all_reduce"] = {"numel": numel, "bytes": 4 * numel,
+                             "ms": time_all_reduce(
+                                 numel, back.mesh.group("data"))}
+        dp = dp_throughput(root, PAR_BATCH_PER_CARD * n, n)
+        profile = profile_call(dp.pop("exp"), root)
+        out["dp"] = dp | profile
+    finally:
+        distributed.shutdown()
+    if rank == 0:
+        one = Experiment.load(path, device=DEVICE,
+                              remesh={"data_parallel": 1,
+                                      "tensor_parallel": 1})
+        out["restore_1x1"] = bitwise(full_leaves(one), p_leaves + o_leaves)
+    print("par-rank: " + json.dumps(out), flush=True)
+    return 0
+
+
+def wait_ranks(procs: list, logs: list, timeout: float) -> list:
+    """(stdout, stderr, exit code) of every rank, from its log files. The
+    first rank to fail ends the others at once: they would wait in a
+    collective for it until NCCL's own timeout."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    outs = []
+    for proc, files in zip(procs, logs):
+        texts = []
+        for f in files:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        outs.append((*texts, proc.returncode))
+    return outs
+
+
+def phase_four_cards() -> dict:
+    """Phase 11 on four cards: four NCCL ranks, one per card."""
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    check(n >= PAR_CARDS, f"--cards {PAR_CARDS} needs {PAR_CARDS} cards, "
+          f"found {n}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    print("nvidia-smi topo -m:\n" + (topo.stdout or topo.stderr).rstrip(),
+          flush=True)
+    peers = [[int(i == j or torch.cuda.can_device_access_peer(i, j))
+              for j in range(PAR_CARDS)] for i in range(PAR_CARDS)]
+    print(f"peer access between cards (torch): {peers}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-par4-") as root:
+        write_split(root)
+        port = free_port()
+        logs = [(open(os.path.join(root, f"rank{r}.out"), "w+"),
+                 open(os.path.join(root, f"rank{r}.err"), "w+"))
+                for r in range(PAR_CARDS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--par-rank",
+             str(r), str(PAR_CARDS), str(port), root],
+            stdout=out, stderr=err, text=True) for r, (out, err) in
+            enumerate(logs)]
+        outs = wait_ranks(procs, logs, timeout=600)
+    for r, (_, err, rc) in enumerate(outs):
+        check(rc == 0, f"rank {r} exited {rc}: {err[-3000:]}")
+    ranks = [tagged(o, "par-rank:")[0] for o, _, _ in outs]
+    for r in ranks:
+        print("par-rank: " + json.dumps(r), flush=True)
+    lead = ranks[0]
+    print("one card, float32 gradients against float64 by depth (width "
+          "128): " + json.dumps(lead["f32_vs_f64"]), flush=True)
+    for depth, key in ((f"{PAR_GATE_LAYERS} x 128", "layouts"),
+                       ("12 x 128, recorded", "layouts_full_depth")):
+        for name, res in lead[key].items():
+            print(f"layout {name} vs one card, {depth}: loss rel err "
+                  f"{res['loss_rel_err']:.3g}; params max-abs "
+                  f"{res['params']['max_abs']:.3g} (tolerance ratio "
+                  f"{res['params']['tolerance_ratio']:.3g}); optimizer "
+                  f"state max-abs {res['opt_state']['max_abs']:.3g} (ratio "
+                  f"{res['opt_state']['tolerance_ratio']:.3g}): "
+                  + ("within tolerance" if res["ok"]
+                     else "OUT OF TOLERANCE"), flush=True)
+    check(all(res["ok"] for res in lead["layouts"].values()),
+          f"every layout within tolerance of one card at "
+          f"{PAR_GATE_LAYERS} x 128")
+    check(all(lead["zero_bitwise"].values()),
+          f"ZeRO equals replicated bitwise: {lead['zero_bitwise']}")
+    check(all(r["restore_4x1"] for r in ranks) and lead["restore_1x1"],
+          "the 2x2 + ZeRO checkpoint restores under 4x1 and 1x1 bitwise")
+    launches = [r["dp"]["launches"] for r in ranks]
+    dp, one = lead["dp"], lead["one_card"]
+    print(f"DP=4 bf16 B={dp['global_batch']}: {dp['samples_per_sec']:.0f} "
+          f"samples/s, {dp['wall_ms_per_step']:.2f} ms a step (wall); one "
+          f"card B={one['global_batch']}: {one['samples_per_sec']:.0f} "
+          f"samples/s, {one['wall_ms_per_step']:.2f} ms; all-reduce of "
+          f"{lead['all_reduce']['bytes'] / 1e6:.2f} MB "
+          f"{lead['all_reduce']['ms']:.3f} ms; launches per rank "
+          f"{launches}", flush=True)
+    ran = sorted(PAR_LAYOUTS) + ["dp4-bf16", "reshard-2x2z-to-4x1",
+                                 "reshard-2x2z-to-1x1"]
+    print("phase 11 layouts run: " + ", ".join(ran) + "; not run: "
+          "none", flush=True)
+    return {"ranks": ranks, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -2631,6 +3220,33 @@ def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
             "by_shape": rows}
 
 
+def parse_phases(argv: list) -> tuple[set, int]:
+    """``--phases 4,11`` (default: all) and ``--cards N`` (default 1).
+    Phases 1-3 always run; a phase that needs an earlier one's net brings
+    it along (5-10 need phase 4's, 6, 8 and 9 phase 5's too)."""
+    phases, cards = set(range(4, 12)), 1
+    args = list(argv)
+    while args:
+        flag = args.pop(0)
+        if flag == "--phases" and args:
+            phases = {int(p) for p in args.pop(0).split(",")}
+        elif flag == "--cards" and args:
+            cards = int(args.pop(0))
+        else:
+            raise SystemExit(f"chip_smoke: unknown argument {flag!r}; use "
+                             "--phases LIST and --cards N")
+    if not phases <= set(range(1, 12)):
+        raise SystemExit(f"chip_smoke: phases run from 1 to 11: {phases}")
+    if cards not in (1, PAR_CARDS) or (cards > 1 and phases != {11}):
+        raise SystemExit(f"chip_smoke: --cards {PAR_CARDS} goes with "
+                         "--phases 11 alone")
+    if phases & {6, 8, 9}:
+        phases.add(5)
+    if phases & {5, 6, 8, 9, 10}:
+        phases.add(4)
+    return phases, cards
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one CUDA card",
@@ -2644,11 +3260,21 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--loop-witness"] and len(sys.argv) == 4:
         return loop_witness_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--par-group"] and len(sys.argv) == 3:
+        return par_group_main(sys.argv[2])
+    if sys.argv[1:2] == ["--elastic-host"] and len(sys.argv) == 7:
+        return elastic_host_main(sys.argv[2], sys.argv[3],
+                                 *map(int, sys.argv[4:7]))
+    if sys.argv[1:2] == ["--par-rank"] and len(sys.argv) == 6:
+        return par_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), sys.argv[5])
+    phases, cards = parse_phases(sys.argv[1:])
     t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, card {kind}", flush=True)
+          f"CUDA {torch.version.cuda}, card {kind}, phases "
+          f"{sorted(phases | {1, 2, 3})}, cards {cards}", flush=True)
     torch.backends.cudnn.benchmark = False  # one algorithm per shape
 
     t0 = time.perf_counter()
@@ -2661,17 +3287,72 @@ def main() -> int:
     extra = np.random.default_rng(SEED + 1)
     kernel_rows = phase_kernel(rng, extra)
     sym_rows = phase_sym_kernel(rng, extra)
-    path = phase_main_path(rng)
-    var = phase_variant_path(rng)
-    f32_err = phase_card_vs_cpu("plain forward", make_log_prob_fn,
-                                path["model"], path["boards"])
-    sym_err = phase_card_vs_cpu(
-        "fused sym forward", quant.make_fused_sym_policy_fn, var["model"],
-        tuple(a[:CARD_VS_CPU_BOARDS] for a in var["boards"]))
-    train = phase_train_path()
-    fleet = phase_fleet_path(path["model"], var["model"])
-    games = phase_games_path(path["model"], var["model"])
-    loop = phase_loop_path(path["model"])
+    expand_paths, sym_paths, summary = {}, {}, {}
+    if 4 in phases:
+        path = phase_main_path(rng)
+        expand_paths["serving_f32"] = path["launches"]
+        summary["f32_path"] = {
+            "cross_rung_max_abs": path["cross_rung"],
+            "cross_rung_spread": path["cross_rung_spread"],
+            "forward_wall_ms": path["forward_wall_ms"],
+            "profile": path["profile"], "engine": path["stats"]}
+    if 5 in phases:
+        var = phase_variant_path(rng)
+        sym_paths["serving_int8_sym"] = var["launches"]
+        summary["int8_sym_path"] = {k: var[k] for k in (
+            "gate", "gate_s", "cross_rung", "cross_rung_spread",
+            "identities", "forward_wall_ms", "profile",
+            "expand_launches")} | {"engine": var["stats"]}
+    if 6 in phases:
+        summary["card_vs_cpu_f32_max_abs"] = phase_card_vs_cpu(
+            "plain forward", make_log_prob_fn, path["model"], path["boards"])
+        summary["card_vs_cpu_fused_sym_f32_max_abs"] = phase_card_vs_cpu(
+            "fused sym forward", quant.make_fused_sym_policy_fn, var["model"],
+            tuple(a[:CARD_VS_CPU_BOARDS] for a in var["boards"]))
+    if 7 in phases:
+        train = phase_train_path()
+        expand_paths["training"] = train["run"]["launches"]
+        sym_paths["training"] = train["run"]["sym_launches"]
+        summary["train_path"] = train | {"run": {
+            k: v for k, v in train["run"].items() if k != "validation"}}
+    if 8 in phases:
+        fleet = phase_fleet_path(path["model"], var["model"])
+        expand_paths |= {
+            "fleet_cache": fleet["cache"]["launches"],
+            "fleet_restart": fleet["restart"]["launches"],
+            "fleet_reload": fleet["reload"]["launches"],
+            "fleet_mixed_f32": fleet["variants"]["expand_launches"],
+            "fleet_surge": fleet["surge"]["launches"],
+            "value_fleet": fleet["value"]["launches"]}
+        sym_paths["fleet_mixed_int8_sym"] = fleet["variants"]["sym_launches"]
+        summary["fleet_path"] = fleet
+    if 9 in phases:
+        games = phase_games_path(path["model"], var["model"])
+        expand_paths |= {
+            "selfplay_engine": games["selfplay"]["launches"],
+            "match_direct": games["direct_match"]["launches"],
+            "selfplay_fleet": games["fleet_selfplay"]["launches"],
+            "search_fleet": games["search"]["launches"],
+            "arena_f32": games["arena"]["launches"],
+            "replay_fleet": games["replay"]["launches"]}
+        sym_paths["arena_int8_sym"] = games["arena"]["sym_launches"]
+        summary["games_path"] = games
+    if 10 in phases:
+        loop = phase_loop_path(path["model"])
+        expand_paths |= {**loop["loop"]["launches_by_path"],
+                         "value_training": loop["value"]["launches"],
+                         "sessions_fleet": loop["sessions"]["launches"]}
+        summary["loop_path"] = loop
+    if 11 in phases and cards == 1:
+        par = phase_parallel()
+        expand_paths |= {"parallel_group": par["group"]["launches"],
+                         "elastic_survivor": par["elastic"]["launches"]}
+        summary["parallel_path"] = par
+    if cards > 1:
+        par4 = phase_four_cards()
+        expand_paths |= {f"dp4_rank{r}": n
+                         for r, n in enumerate(par4["launches"])}
+        summary["parallel_4_cards"] = par4
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512
@@ -2680,51 +3361,14 @@ def main() -> int:
 
     kernels = {"kernels": [
         kernel_entry("expand_planes", "deepgo_tpu/ops/pallas_expand.py:84",
-                     {"serving_f32": path["launches"],
-                      "training": train["run"]["launches"],
-                      "fleet_cache": fleet["cache"]["launches"],
-                      "fleet_restart": fleet["restart"]["launches"],
-                      "fleet_reload": fleet["reload"]["launches"],
-                      "fleet_mixed_f32": fleet["variants"]["expand_launches"],
-                      "fleet_surge": fleet["surge"]["launches"],
-                      "value_fleet": fleet["value"]["launches"],
-                      "selfplay_engine": games["selfplay"]["launches"],
-                      "match_direct": games["direct_match"]["launches"],
-                      "selfplay_fleet": games["fleet_selfplay"]["launches"],
-                      "search_fleet": games["search"]["launches"],
-                      "arena_f32": games["arena"]["launches"],
-                      "replay_fleet": games["replay"]["launches"],
-                      **loop["loop"]["launches_by_path"],
-                      "value_training": loop["value"]["launches"],
-                      "sessions_fleet": loop["sessions"]["launches"]},
-                     kernel_rows, top_row(kernel_rows, 1)),
+                     expand_paths, kernel_rows, top_row(kernel_rows, 1)),
         kernel_entry("expand_planes_sym",
                      "deepgo_tpu/ops/pallas_expand.py:90",
-                     {"serving_int8_sym": var["launches"],
-                      "training": train["run"]["sym_launches"],
-                      "fleet_mixed_int8_sym":
-                          fleet["variants"]["sym_launches"],
-                      "arena_int8_sym": games["arena"]["sym_launches"]},
-                     sym_rows, top_row(sym_rows, 8)),
+                     sym_paths, sym_rows, top_row(sym_rows, 8)),
     ]}
-    print("summary: " + json.dumps({
-        "card_vs_cpu_f32_max_abs": f32_err,
-        "card_vs_cpu_fused_sym_f32_max_abs": sym_err,
-        "f32_path": {"cross_rung_max_abs": path["cross_rung"],
-                     "cross_rung_spread": path["cross_rung_spread"],
-                     "forward_wall_ms": path["forward_wall_ms"],
-                     "profile": path["profile"], "engine": path["stats"]},
-        "int8_sym_path": {k: var[k] for k in (
-            "gate", "gate_s", "cross_rung", "cross_rung_spread", "identities",
-            "forward_wall_ms", "profile", "expand_launches")}
-        | {"engine": var["stats"]},
-        "train_path": train | {"run": {
-            k: v for k, v in train["run"].items() if k != "validation"}},
-        "fleet_path": fleet,
-        "games_path": games,
-        "loop_path": loop,
-        "seconds": time.perf_counter() - t_start}), flush=True)
-    print(card, flush=True)
+    summary["seconds"] = time.perf_counter() - t_start
+    print("summary: " + json.dumps(summary), flush=True)
+    print(all_cards() if cards > 1 else card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,6 +15,14 @@ wrapped as tensors: no pinning, no stream.
 ``num_threads=0`` samples synchronously in the caller and is
 *step-indexed*: the batch for step t is a pure function of (seed, t), so a
 resumed run replays the uninterrupted run's batches bitwise.
+
+Data parallelism: ``shard=(index, count)`` makes the loader feed data rank
+``index`` of ``count``. Step-indexed, every rank draws the global batch's
+indices from ``step_rng(seed, t)`` and gathers only its own B / count
+rows, so the ranks together train on exactly the single device's batch.
+Threaded, each rank samples B / count rows from a stream seeded from
+(seed + start_step, index): i.i.d. as before, but not the single device's
+batches row for row (the JAX package's one global stream is).
 """
 
 from __future__ import annotations
@@ -45,22 +53,40 @@ def step_rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence((seed, step)))
 
 
+def _rows(batch_size: int, shard: tuple[int, int] | None) -> slice:
+    """Data rank ``shard[0]``'s rows of ``shard[1]`` (all rows for None)."""
+    if shard is None:
+        return slice(0, batch_size)
+    index, count = shard
+    if batch_size % count:
+        raise ValueError(f"batch_size {batch_size} must divide over "
+                         f"{count} data-parallel ranks")
+    per = batch_size // count
+    return slice(index * per, (index + 1) * per)
+
+
 def make_step_batch(dataset: GoDataset, seed: int, step: int, batch_size: int,
                     scheme: str = "game", augment: bool = False,
-                    wire: str = "packed", stack: int = 0) -> dict:
+                    wire: str = "packed", stack: int = 0,
+                    shard: tuple[int, int] | None = None) -> dict:
     """Deterministic (super)batch covering steps [step, step + max(1, stack)).
 
     Each covered step samples from its own ``step_rng``; the gather and the
     optional nibble pass run once over all k*B positions. ``stack=0``
-    returns a flat (B, ...) batch, ``stack>=1`` a (K, B, ...) superbatch."""
+    returns a flat (B, ...) batch, ``stack>=1`` a (K, B, ...) superbatch.
+    ``shard=(index, count)`` keeps data rank ``index``'s B / count rows of
+    each step's global batch of ``batch_size`` (only those are gathered)."""
     k = max(1, stack)
+    rows = _rows(batch_size, shard)
     idx_parts, sym_parts = [], []
     for t in range(step, step + k):
         rng = step_rng(seed, t)
-        idx_parts.append(dataset.sample_indices(rng, batch_size, scheme))
+        idx_parts.append(dataset.sample_indices(rng, batch_size,
+                                                scheme)[rows])
         if augment:
             sym_parts.append(rng.integers(0, 8, size=batch_size)
-                             .astype(np.int32))
+                             .astype(np.int32)[rows])
+    batch_size = rows.stop - rows.start
     packed, player, rank, target = dataset.batch_at(np.concatenate(idx_parts))
     if wire == "nibble":
         packed = nibble_pack_np(packed)
@@ -138,6 +164,7 @@ class AsyncLoader:
         stack: int = 0,
         wire: str = "packed",
         device_prefetch: int = 0,
+        shard: tuple[int, int] | None = None,
     ):
         """``stack=K`` (K >= 1) makes ``get()`` return (K, B, ...)
         superbatches for ``make_train_step_many``. ``wire="nibble"`` ships
@@ -149,9 +176,14 @@ class AsyncLoader:
         ``start_step`` is the training step this loader begins feeding.
         With ``num_threads=0`` the stream is step-indexed (``step_rng``);
         threaded mode keeps the free-running i.i.d. stream, where
-        start_step only offsets the worker seeds."""
+        start_step only offsets the worker seeds. ``shard=(index, count)``
+        feeds data rank ``index`` its B / count rows (module docstring)."""
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard
+        # rows a threaded worker samples for this rank
+        rows = _rows(batch_size, shard)
+        self._local_batch = rows.stop - rows.start
         self.scheme = scheme
         self.wire = wire
         self.device = resolve_device(device)
@@ -179,7 +211,9 @@ class AsyncLoader:
         self.num_threads = num_threads
         self._seed = seed
         self._cursor = start_step  # next step to feed (step-indexed mode)
-        self._seq = np.random.SeedSequence(seed + start_step)
+        self._seq = np.random.SeedSequence(
+            seed + start_step if shard is None
+            else (seed + start_step, shard[0]))
         self._worker_error: BaseException | None = None
         self._dev_queue: queue.Queue | None = None
         if num_threads > 0:
@@ -217,13 +251,14 @@ class AsyncLoader:
         if rng is None:
             batch = make_step_batch(self.dataset, self._seed, self._cursor,
                                     self.batch_size, self.scheme,
-                                    self.augment, self.wire, stack=stack)
+                                    self.augment, self.wire, stack=stack,
+                                    shard=self.shard)
             self._cursor += max(1, stack)
             return batch
         if stack < 1:
-            return make_host_batch(self.dataset, rng, self.batch_size,
+            return make_host_batch(self.dataset, rng, self._local_batch,
                                    self.scheme, self.augment, self.wire)
-        return make_host_superbatch(self.dataset, rng, self.batch_size,
+        return make_host_superbatch(self.dataset, rng, self._local_batch,
                                     stack, self.scheme, self.augment,
                                     self.wire)
 

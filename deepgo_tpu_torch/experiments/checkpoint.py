@@ -114,23 +114,19 @@ def unflatten_like(template, leaves, path: str = "<checkpoint>"):
     return _rebuild(template, iter(leaves))
 
 
-def manifest(params, opt_state, *, zero_opt: bool) -> dict:
-    """The ``mesh`` manifest of a state on one device, as the JAX
-    package's ``parallel.reshard.manifest`` writes it for a 1 x 1 mesh:
-    params replicated; with ``zero_opt`` each optimizer leaf of rank >= 1
-    placed on "data" along its first dimension."""
-    def spec(leaf, zero):
-        if zero and np.ndim(leaf) >= 1:
-            return "PartitionSpec('data'" + ", None" * (np.ndim(leaf) - 1) + ")"
-        return "PartitionSpec()"
+def manifest(params, opt_state, *, zero_opt: bool, mesh=None,
+             tensor_parallel: int = 1) -> dict:
+    """The ``mesh`` manifest of a state (JAX-layout trees) written from a
+    D x M ``mesh`` (default 1 x 1), with the strings the JAX package's
+    ``parallel.reshard.manifest`` writes for the same layout; see the
+    port's ``parallel/reshard.py``."""
+    from ..parallel import mesh as mesh_lib
+    from ..parallel import reshard
 
-    return {
-        "version": MANIFEST_VERSION, "data": 1, "model": 1, "devices": 1,
-        "zero_opt": bool(zero_opt),
-        "params": [spec(leaf, False) for leaf in tree_leaves(params)],
-        "opt_state": [spec(leaf, zero_opt)
-                      for leaf in tree_leaves(opt_state)],
-    }
+    if mesh is None:
+        mesh = mesh_lib.make_mesh(1, 1, devices=[mesh_lib.RankDevice(0, 0)])
+    return reshard.manifest(mesh, params, opt_state, zero_opt=zero_opt,
+                            tensor_parallel=tensor_parallel)
 
 
 def _leaf_bytes(arr: np.ndarray) -> bytes:

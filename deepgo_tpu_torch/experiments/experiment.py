@@ -1,5 +1,5 @@
-"""The experiment layer on one device: config -> initialised run -> train,
-validate, checkpoint, resume.
+"""The experiment layer: config -> initialised run -> train, validate,
+checkpoint, resume, on one device or over a process group.
 
 The port of ``deepgo_tpu/experiments/experiment.py``:
 
@@ -12,12 +12,26 @@ The port of ``deepgo_tpu/experiments/experiment.py``:
     set) with a checkpoint at every validation, rolling retention, and
     load-and-continue resume; warm restart is in ``experiments.repeated``.
 
-One device only: ``data_parallel > 1``, ``tensor_parallel > 1`` and
-``elastic=True`` wait for the port of the parallel layer, and
-``profile=True`` for the observability adapters (the span trace, the
+Parallelism (``parallel/``): inside a ``torch.distributed`` process group
+(``parallel.distributed.initialize``; NCCL on the cards, gloo on the CPU)
+the run lays the group's ranks out as a ``data_parallel`` x
+``tensor_parallel`` mesh (``data_parallel=0``: the group's size over
+``tensor_parallel``; 1 without a group). Each data rank trains on its rows
+of the step's global batch and the gradients are averaged over "data";
+under ``tensor_parallel > 1`` each rank holds its channel shards
+(``parallel/tensor.py``); ``zero_opt`` keeps 1/D of the optimizer state
+per data rank (``parallel/zero.py``). A layout the group cannot hold
+raises ``ConfigError``; a CUDA run in a group is on ``cuda:{local rank}``.
+Validation is sharded over the data ranks and its sums all-reduced.
+Checkpoints are gathered to full arrays and written by rank 0 alone (the
+others wait at a barrier); every rank reads them, and ``load(path,
+remesh=...)`` restores under another layout (``parallel/reshard.py``).
+``elastic=True`` threads the ``dist_collective`` fault site through the
+step; ``parallel/elastic.py`` drives elastic runs.
+
+``profile=True`` waits for the observability adapters (the span trace, the
 flight recorder and the cost ledger arrive with them; ``cost_ledger`` is
-accepted and has no effect yet). ``zero_opt`` is recorded in the
-checkpoint's manifest.
+accepted and has no effect yet).
 """
 
 from __future__ import annotations
@@ -31,15 +45,16 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..data.dataset import GoDataset
 from ..data.loader import AsyncLoader, to_device
 from ..models import policy_cnn
-from ..models.convert import (opt_state_from_jax, opt_state_to_jax,
-                              params_from_jax, params_to_jax)
 from ..obs import get_registry
 from ..ops.wire import nibble_pack_np
+from ..parallel import data_sharding, distributed, make_mesh, reshard, zero
+from ..parallel.liveness import ConfigError
 from ..training import make_eval_step, make_train_step, make_train_step_many
 from ..training.optimizers import for_config
 from ..utils import faults
@@ -49,11 +64,9 @@ from ..utils.metrics import MetricsWriter, append_registry
 from ..utils.retry import retry_with_backoff
 from . import checkpoint as ckpt
 
-# configurations one card cannot honour, and the ROADMAP item each waits on
+# configurations the port cannot honour yet, and the ROADMAP item each
+# waits on
 _UNSUPPORTED = (
-    ("data_parallel", lambda v: v > 1, "ROADMAP A6 (parallel)"),
-    ("tensor_parallel", lambda v: v > 1, "ROADMAP A6 (parallel)"),
-    ("elastic", bool, "ROADMAP A6 (parallel)"),
     ("profile", bool, "ROADMAP A7 (observability adapters)"),
 )
 
@@ -96,7 +109,7 @@ class ExperimentConfig:
     device_prefetch: int = 2
     anchor_checkpoint: str = ""
     anchor_weight: float = 0.0
-    data_parallel: int = 0  # 0 = all available devices: one here
+    data_parallel: int = 0  # 0 = the group's ranks / tensor_parallel
     tensor_parallel: int = 1
     zero_opt: bool = True
     expand_backend: str = "xla"  # accepted; the device picks the expansion
@@ -151,6 +164,14 @@ class Experiment:
         self.initialized = False
         self.model: policy_cnn.PolicyCNN | None = None
         self.opt_state: dict | None = None
+        # placement-check findings of the latest restore (``load``); the
+        # elastic recovery record reports their count
+        self.last_restore_findings: list = []
+        # optional hook called at every print-window boundary, after
+        # metrics, validation and checkpointing, with (step,
+        # window_seconds, window_steps); an exception raised here (a
+        # HostLost from the heartbeat ledger) propagates out of train()
+        self.on_window = None
 
     # ---- setup ----
 
@@ -159,10 +180,11 @@ class Experiment:
         for field, unsupported, item in _UNSUPPORTED:
             if unsupported(getattr(cfg, field)):
                 raise ValueError(
-                    f"{field}={getattr(cfg, field)!r} needs more than one "
-                    f"device or an unported layer: it waits for {item}")
+                    f"{field}={getattr(cfg, field)!r} needs an unported "
+                    f"layer: it waits for {item}")
         if cfg.faults and not os.environ.get("DEEPGO_FAULTS"):
             faults.install(cfg.faults)
+        self._init_mesh()
         self.wire = cfg.wire_format
         if self.wire == "auto":
             self.wire = "nibble" if self.device.type == "cuda" else "packed"
@@ -170,11 +192,20 @@ class Experiment:
             raise ValueError(f"wire_format must be auto|nibble|packed, "
                              f"got {cfg.wire_format!r}")
         self.model_cfg = cfg.model_config()
+        self.placement = reshard.Placement.for_model(
+            self.model_cfg, self.mesh, tensor_parallel=cfg.tensor_parallel,
+            zero_opt=cfg.zero_opt)
         self.optimizer = for_config(cfg)
+        if self.mesh.shape["data"] > 1 and cfg.zero_opt:
+            self.optimizer = zero.shard_optimizer(self.optimizer,
+                                                  self.placement)
         if self.model is None:
             self.model = policy_cnn.init(
                 torch.Generator().manual_seed(cfg.seed), self.model_cfg,
                 device=self.device)
+        # a full model (and state) -> this rank's shards
+        self.model, self.opt_state = reshard.place_state(
+            self.model, self.opt_state, self.placement)
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(self.model)
         if bool(cfg.anchor_checkpoint) != (cfg.anchor_weight > 0):
@@ -192,7 +223,7 @@ class Experiment:
         collective_site = "dist_collective" if cfg.elastic else None
         kw = dict(expand_backend=cfg.expand_backend, augment=cfg.augment,
                   anchor=anchor, wire=self.wire,
-                  collective_site=collective_site)
+                  collective_site=collective_site, mesh=self.mesh)
         self.train_step = make_train_step(self.model_cfg, self.optimizer,
                                           **kw)
         self.train_step_many = make_train_step_many(self.model_cfg,
@@ -203,6 +234,33 @@ class Experiment:
         self.run_path = os.path.join(cfg.run_dir, self.id)
         os.makedirs(self.run_path, exist_ok=True)
         self.initialized = True
+
+    def _init_mesh(self) -> None:
+        """The (data, model) mesh over the process group (ConfigError when
+        the group cannot hold the layout), this rank's device, and the run
+        id rank 0 chose."""
+        cfg = self.config
+        world = distributed.world_size()
+        dp = cfg.data_parallel or max(1, world // cfg.tensor_parallel)
+        if cfg.batch_size % dp != 0:
+            # config validation must survive `python -O`
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must divide over {dp} "
+                "data-parallel devices")
+        self.mesh = make_mesh(dp, cfg.tensor_parallel)
+        self.rank = distributed.process_index()
+        if not dist.is_initialized():
+            return
+        nccl = dist.get_backend() == "nccl"
+        if nccl != (self.device.type == "cuda"):
+            raise ConfigError(
+                f"a {self.device.type} run in a {dist.get_backend()} group: "
+                f"CUDA ranks join over NCCL, CPU ranks over gloo")
+        if nccl:
+            self.device = distributed.local_device()
+        ids = [self.id]
+        dist.broadcast_object_list(ids, src=0)
+        self.id = ids[0]
 
     def _dataset(self, split: str) -> GoDataset:
         return GoDataset(self.config.data_root, split)
@@ -228,17 +286,28 @@ class Experiment:
             git_sha=git_sha(),
             config=cfg.to_dict(),
         )
-        append_registry(os.path.join(cfg.run_dir, "registry.jsonl"), summary)
+        if self.rank == 0:
+            append_registry(os.path.join(cfg.run_dir, "registry.jsonl"),
+                            summary)
         return summary
 
     def train(self, iters: int) -> dict:
         if not self.initialized:
             self.init()
-        metrics = MetricsWriter(os.path.join(self.run_path, "metrics.jsonl"))
+        # rank 0 writes the run's metrics.jsonl, every other rank a stream
+        # of its own
+        name = ("metrics.jsonl" if self.rank == 0
+                else f"metrics-rank{self.rank:04d}.jsonl")
+        metrics = MetricsWriter(os.path.join(self.run_path, name))
         try:
             return self._train(iters, metrics)
         finally:
             metrics.close()
+
+    def _data_shard(self) -> tuple[int, int] | None:
+        """(data index, data ranks) for the loader; None on one data rank."""
+        d = self.mesh.shape["data"]
+        return None if d == 1 else (self.mesh.local_index("data"), d)
 
     def _steps_per_call(self) -> int:
         """Steps K per train call: the largest divisor of print_interval
@@ -278,6 +347,9 @@ class Experiment:
         obs_fetch = reg.histogram(
             "deepgo_train_fetch_seconds",
             "host time blocked fetching window losses (the device fence)")
+        obs_hook = reg.histogram(
+            "deepgo_train_hook_seconds",
+            "window-hook time (heartbeat write + liveness checks)")
         obs_wall = reg.counter(
             "deepgo_train_wall_seconds_total",
             "train-loop wall time: the attribution denominator")
@@ -354,6 +426,7 @@ class Experiment:
             augment=cfg.augment,
             wire=self.wire,
             device_prefetch=cfg.device_prefetch,
+            shard=self._data_shard(),
         ) as loader:
             try:
                 remaining = iters
@@ -378,7 +451,7 @@ class Experiment:
                         window_dt = time.time() - window_t0
                         window_t0 = time.time()
                         sps = window_steps * cfg.batch_size / window_dt
-                        window_steps = 0
+                        done_steps, window_steps = window_steps, 0
                         metrics.write("train", step=self.step, loss=last_loss,
                                       ewma=ewma, samples_per_sec=sps)
                         obs_window.observe(window_dt)
@@ -395,6 +468,13 @@ class Experiment:
                         else:
                             print(f"training {ewma:.4f} (samples per second "
                                   f"{sps:.0f})")
+                        # the elastic hook last, after the periodic
+                        # checkpoint: a HostLost raised here finds the
+                        # newest checkpoint already on disk
+                        if self.on_window is not None:
+                            t_hook = time.monotonic()
+                            self.on_window(self.step, window_dt, done_steps)
+                            obs_hook.observe(time.monotonic() - t_hook)
                 # a final partial window still folds into the EWMA
                 ewma, last_loss = fold_pending(ewma, last_loss)
             finally:
@@ -425,7 +505,8 @@ class Experiment:
     def _deterministic_batches(self, dataset: GoDataset, n: int
                                ) -> list[dict]:
         """Fixed, game-balanced sample of a split (``even_n``), padded to
-        whole batches with a float mask, on the device."""
+        whole batches with a float mask, on the device: this data rank's
+        rows of each."""
         cfg = self.config
         packed, player, rank, target = dataset.even_n(n)
         if self.wire == "nibble":
@@ -444,14 +525,17 @@ class Experiment:
                 "target": np.pad(target[chunk], (0, pad)),
                 "mask": np.pad(np.ones(size, np.float32), (0, pad)),
             }
-            batches.append(to_device(batch, self.device))
+            rows = data_sharding(self.mesh)
+            batches.append(to_device({k: rows.take(v) for k, v in
+                                      batch.items()}, self.device))
         return batches
 
     def validate(self, val_batches: list[dict] | None = None,
                  record_history: bool = True) -> dict:
-        """Mean NLL and top-1 accuracy over the fixed validation set.
-        ``record_history`` appends to validation_history (which checkpoints
-        keep); one-off evaluations pass False."""
+        """Mean NLL and top-1 accuracy over the fixed validation set; the
+        data ranks' sums are all-reduced. ``record_history`` appends to
+        validation_history (which checkpoints keep); one-off evaluations
+        pass False."""
         if val_batches is None:
             if not self.initialized:
                 self.init()
@@ -464,6 +548,12 @@ class Experiment:
             total_nll += float(sum_nll)
             total_correct += float(correct)
             total_n += float(batch["mask"].sum())
+        group = self.mesh.group("data")
+        if group is not None:
+            sums = torch.tensor([total_nll, total_correct, total_n],
+                                dtype=torch.float64, device=self.device)
+            dist.all_reduce(sums, group=group)
+            total_nll, total_correct, total_n = sums.tolist()
         record = {
             "cost": total_nll / total_n,
             "accuracy": total_correct / total_n,
@@ -490,12 +580,22 @@ class Experiment:
         """Write one atomic, integrity-checked checkpoint in the JAX
         package's format. With no ``path`` the run directory gets a rolling
         ``checkpoint-{step:08d}.npz``, the ``checkpoint.npz`` alias is
-        refreshed and retention prunes old files."""
+        refreshed and retention prunes old files. Every rank of the mesh
+        calls it: the shards are gathered to full arrays, rank 0 writes,
+        and the others wait for it at a barrier."""
         managed = path is None
         path = path or os.path.join(self.run_path,
                                     ckpt.checkpoint_name(self.step))
-        params = params_to_jax(self.model)
-        opt_state = opt_state_to_jax(self.opt_state)
+        state = reshard.gather_to_host(self.model, self.opt_state,
+                                       self.placement)
+        try:
+            if self.rank == 0:
+                self._write(path, *state, managed=managed)
+        finally:
+            self._barrier()
+        return path
+
+    def _write(self, path: str, params, opt_state, managed: bool) -> None:
         meta = {
             "id": self.id,
             "step": self.step,
@@ -504,26 +604,40 @@ class Experiment:
             "last_loss": self.last_loss,
             "config": self.config.to_dict(),
             "git_sha": git_sha(),
-            "mesh": ckpt.manifest(params, opt_state,
-                                  zero_opt=self.config.zero_opt),
+            # the layout that wrote it; a restore under any other reshards
+            "mesh": reshard.manifest(
+                self.mesh, params, opt_state, zero_opt=self.config.zero_opt,
+                tensor_parallel=self.config.tensor_parallel),
         }
         ckpt.save_checkpoint(path, params, opt_state, meta)
         if managed:
             self._refresh_latest_alias(path)
             self._apply_retention()
-        return path
+
+    def _barrier(self) -> None:
+        if self.mesh.device_mesh is not None:
+            dist.barrier()
 
     def _save_periodic(self) -> str | None:
-        """The in-loop save: transient I/O faults are retried, and a save
-        that still fails is logged and survived (the previous rolling
-        checkpoint is still on disk and valid)."""
+        """The in-loop save: transient I/O faults of the write are retried,
+        and a save that still fails is logged and survived (the previous
+        rolling checkpoint is still on disk and valid)."""
+        path = os.path.join(self.run_path, ckpt.checkpoint_name(self.step))
+        state = reshard.gather_to_host(self.model, self.opt_state,
+                                       self.placement)
         try:
-            return retry_with_backoff(self.save, attempts=3, base_delay=0.1)
+            if self.rank == 0:
+                retry_with_backoff(
+                    lambda: self._write(path, *state, managed=True),
+                    attempts=3, base_delay=0.1)
+            return path
         except (OSError, RuntimeError) as e:
             print(f"warning: checkpoint save failed at step {self.step} "
                   f"({e}); training continues on the previous checkpoint",
                   file=sys.stderr, flush=True)
             return None
+        finally:
+            self._barrier()
 
     def _refresh_latest_alias(self, path: str) -> None:
         """Best-effort ``checkpoint.npz`` symlink to the newest rolling
@@ -563,22 +677,35 @@ class Experiment:
                     pass
 
     def _restore(self, p_leaves, o_leaves, path: str) -> None:
-        """Load checkpoint leaves into the initialised model and optimizer
-        state; raises CheckpointError when they do not fit."""
-        params = ckpt.unflatten_like(params_to_jax(self.model), p_leaves,
-                                     path)
-        self.model.load_state_dict(params_from_jax(params))
-        if o_leaves is not None:
-            opt_state = ckpt.unflatten_like(
-                opt_state_to_jax(self.opt_state), o_leaves, path)
-            self.opt_state = opt_state_from_jax(opt_state, self.device)
+        """Load full checkpoint leaves into this rank's shards of the
+        initialised model and optimizer state (a reshard when the layout
+        differs from the writer's); raises CheckpointError when they do not
+        fit. The placement check's findings land on
+        ``last_restore_findings``."""
+        params_t, opt_t = reshard.full_templates(self.placement,
+                                                 self.opt_state)
+        params = ckpt.unflatten_like(params_t, p_leaves, path)
+        opt_state = (None if o_leaves is None
+                     else ckpt.unflatten_like(opt_t, o_leaves, path))
+        named, state, self.last_restore_findings = reshard.restore(
+            params, opt_state, self.placement, self.device)
+        self.model.load_state_dict(named)
+        if state is not None:
+            self.opt_state = state
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "Experiment":
+    def load(cls, path: str, device="cuda", remesh: dict | None = None
+             ) -> "Experiment":
         """Rebuild an experiment from a checkpoint (the port's or the JAX
-        package's) and continue it on ``device``."""
+        package's) and continue it on ``device``. ``remesh`` overrides the
+        stored parallelism layout (e.g. ``{"tensor_parallel": 1}``
+        restores a tp = 2 checkpoint on a tp = 1 mesh); the restore puts
+        the leaves where a fresh ``init()`` under the new layout puts
+        them."""
         meta, p_leaves, o_leaves = ckpt.load_checkpoint(path)
         config = ExperimentConfig.from_dict(meta["config"])
+        if remesh:
+            config = config.replace(**remesh)
         exp = cls(config, run_id=meta["id"], device=device)
         exp.step = meta["step"]
         exp.validation_history = list(meta["validation_history"])
@@ -591,19 +718,22 @@ class Experiment:
 
     @classmethod
     def auto_resume(cls, run_dir: str, overrides: dict | None = None,
-                    log=None, device="cuda") -> "Experiment":
+                    log=None, device="cuda", remesh: dict | None = None
+                    ) -> "Experiment":
         """Continue from the newest valid checkpoint in ``run_dir``
         (corrupt candidates are skipped with a logged reason), or start a
         fresh run rooted at exactly that directory. On resume the stored
-        config wins over ``overrides``."""
+        config wins over ``overrides``; ``remesh`` is the one sanctioned
+        exception, a parallelism-layout change applied through the
+        resharding restore."""
         path = ckpt.find_latest_valid(run_dir, log=log)
         if path is not None:
             if overrides:
                 print(f"auto-resume: ignoring overrides {sorted(overrides)} "
                       f"(config comes from {path})", file=sys.stderr)
-            return cls.load(path, device=device)
+            return cls.load(path, device=device, remesh=remesh)
         run_dir = run_dir.rstrip("/")
         parent, run_id = os.path.split(run_dir)
-        config = ExperimentConfig(**(overrides or {}))
+        config = ExperimentConfig(**{**(overrides or {}), **(remesh or {})})
         config = config.replace(run_dir=parent or ".")
         return cls(config, run_id=run_id or None, device=device)

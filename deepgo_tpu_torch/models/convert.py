@@ -37,7 +37,7 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     return state
 
 
-def _named_to_jax(named: dict[str, torch.Tensor]) -> dict:
+def named_to_jax(named: dict[str, torch.Tensor]) -> dict:
     """``{"layers.{i}.weight": OIHW, "layers.{i}.bias": (C, 19, 19)}`` ->
     the JAX-layout tree of float32 numpy arrays."""
     layers = []
@@ -51,7 +51,7 @@ def _named_to_jax(named: dict[str, torch.Tensor]) -> dict:
 
 def params_to_jax(model: PolicyCNN) -> dict:
     """A ``PolicyCNN`` -> the JAX-layout tree of float32 numpy arrays."""
-    return _named_to_jax(dict(model.named_parameters()))
+    return named_to_jax(dict(model.named_parameters()))
 
 
 _OPT_TREES = ("velocity", "accum")
@@ -76,7 +76,7 @@ def opt_state_to_jax(state: dict) -> dict:
     tree = {"rate": state["rate"].detach().cpu().numpy()}
     for key in _OPT_TREES:
         if key in state:
-            tree[key] = _named_to_jax(state[key])
+            tree[key] = named_to_jax(state[key])
     return tree
 
 
@@ -144,9 +144,9 @@ def value_opt_state_to_jax(state: dict) -> dict:
 
 
 def _value_named_to_jax(named: dict[str, torch.Tensor]) -> dict:
-    tree = _named_to_jax({k: v for k, v in named.items()
-                          if k.startswith("layers.")})
-    tree["head_conv"] = _named_to_jax({
+    tree = named_to_jax({k: v for k, v in named.items()
+                         if k.startswith("layers.")})
+    tree["head_conv"] = named_to_jax({
         "layers.0.weight": named["head_conv.weight"],
         "layers.0.bias": named["head_conv.bias"]})["layers"][0]
     for name in ("dense1", "dense2"):

@@ -135,13 +135,19 @@ class PolicyCNN(nn.Module):
         last = len(self.layers) - 1
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            relu = i < last or self.cfg.final_relu
-            if remat:
-                x = checkpoint(_conv_layer, layer, x, relu,
-                               use_reentrant=False)
-            else:
-                x = _conv_layer(layer, x, relu)
+            x = self.apply_layer(i, x, i < last or self.cfg.final_relu,
+                                 remat)
         return x.reshape(x.shape[0], NUM_POINTS).float()
+
+    def apply_layer(self, i: int, x: torch.Tensor, relu: bool, remat: bool
+                    ) -> torch.Tensor:
+        """Layer ``i`` on activations ``x``; the tensor-parallel network
+        (``parallel/tensor.py``) wraps it in its collectives."""
+        layer = self.layers[i]
+        if remat:
+            return checkpoint(_conv_layer, layer, x, relu,
+                              use_reentrant=False)
+        return _conv_layer(layer, x, relu)
 
 
 def _conv_layer(layer: nn.Module, x: torch.Tensor, relu: bool

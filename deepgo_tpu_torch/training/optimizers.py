@@ -10,7 +10,9 @@ rounds to float32 every step, as in JAX), and ``velocity`` / ``accum`` map
 each parameter name (``layers.{i}.weight`` / ``layers.{i}.bias``) to a
 tensor shaped like it. ``models/convert.py`` maps a state to and from the
 JAX pytree. ``update`` writes the new parameters into the model in place,
-under ``torch.no_grad()``, and returns the new state.
+under ``torch.no_grad()``, and returns the new state; ``apply`` does the
+same over given parameter tensors (which may be views, as ZeRO's chunks
+are, ``parallel/zero.py``) with the state's entries for them.
 
 The arithmetic is the JAX package's, in float32, in the form XLA compiles
 it to: XLA contracts ``p - r * g``, ``momentum * v + g`` and Adagrad's
@@ -39,6 +41,17 @@ class Optimizer(NamedTuple):
     init: Callable[[nn.Module], dict]
     # (model, grads in model.parameters() order, state) -> new state
     update: Callable[[nn.Module, list, dict], dict]
+    # (names, params, grads, state) -> new state; the update over
+    # parameter tensors written in place
+    apply: Callable[[list, list, list, dict], dict]
+
+
+def _optimizer(init, apply) -> Optimizer:
+    def update(model, grads, state):
+        names, params = _named(model)
+        return apply(names, params, grads, state)
+
+    return Optimizer(init, update, apply)
 
 
 def _named(model: nn.Module) -> tuple[list[str], list[torch.Tensor]]:
@@ -65,8 +78,7 @@ def sgd(rate: float, rate_decay: float = 0.0, momentum: float = 0.0
         return state
 
     @torch.no_grad()
-    def update(model, grads, state):
-        names, params = _named(model)
+    def apply(names, params, grads, state):
         r = state["rate"]
         new_state = {"rate": r * (1.0 - rate_decay)}
         if momentum:
@@ -78,7 +90,7 @@ def sgd(rate: float, rate_decay: float = 0.0, momentum: float = 0.0
             p.addcmul_(r, g, value=-1.0)  # fma(-r, g, p)
         return new_state
 
-    return Optimizer(init, update)
+    return _optimizer(init, apply)
 
 
 def adagrad(rate: float, decay: float = 0.95, eps: float = 1e-10
@@ -92,8 +104,7 @@ def adagrad(rate: float, decay: float = 0.95, eps: float = 1e-10
                           for n, p in model.named_parameters()}}
 
     @torch.no_grad()
-    def update(model, grads, state):
-        names, params = _named(model)
+    def apply(names, params, grads, state):
         r = state["rate"]
         # fma(decay, a, (1 - decay) * g * g), the product left to right
         accum = torch._foreach_add(
@@ -105,7 +116,7 @@ def adagrad(rate: float, decay: float = 0.95, eps: float = 1e-10
         torch._foreach_sub_(params, step)
         return {"rate": r, "accum": dict(zip(names, accum))}
 
-    return Optimizer(init, update)
+    return _optimizer(init, apply)
 
 
 OPTIMIZERS = {"sgd": sgd, "adagrad": adagrad}

@@ -12,9 +12,19 @@ with the new state. Losses stay on the device: nothing in a step reads a
 value back to the host, so a run of steps queues on the card without a
 host round trip between them.
 
+Data parallelism: given a ``mesh`` (``parallel/mesh.py``), each data rank
+steps on its rows of the global batch, and between the backward and the
+optimizer update the step averages every gradient and the loss over the
+mesh's "data" group: one all-reduce of one flat float32 buffer a step
+(``make_train_step_many``: one per inner step). DDP does not fit here: its
+reducer hooks fire under ``.backward()``, and the step takes its gradients
+with ``torch.autograd.grad``. Tensor parallelism lives in the network
+(``parallel/tensor.py``), ZeRO in the optimizer (``parallel/zero.py``).
+
 Each part of a step runs under a ``torch.profiler.record_function`` label
 (``train.unwire``, ``train.augment``, ``train.expand``, ``train.forward``,
-``train.loss``, ``train.backward``, ``train.optimizer``), so a profile
+``train.loss``, ``train.backward``, ``train.allreduce``,
+``train.optimizer``), so a profile
 attributes the card's kernels to the parts; a label costs a few
 microseconds on the host when no profiler runs.
 
@@ -27,6 +37,7 @@ Batches are dicts of tensors on the model's device:
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -77,8 +88,25 @@ def _planes(batch: dict, packed: torch.Tensor, cfg) -> torch.Tensor:
                          batch["rank"].contiguous(), dtype=cfg.torch_dtype)
 
 
+def _data_group(mesh):
+    """The group a step averages its gradients over; None for no mesh or
+    a 1 x 1 mesh without a process group."""
+    return None if mesh is None else mesh.group("data")
+
+
+def average_gradients(grads, loss, group):
+    """Every gradient and the loss averaged over ``group`` by one
+    all-reduce of one flat float32 buffer; returns (grads, loss), the
+    grads as views of the buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
+    parts = flat.split([g.numel() for g in grads] + [1])
+    return ([p.view(g.shape) for p, g in zip(parts, grads)],
+            parts[-1].view(()))
+
+
 def _one_step(model, opt_state, batch, cfg, optimizer, augment, anchor,
-              wire):
+              wire, group):
     with record_function("train.unwire"):
         packed = _unwire(batch["packed"], wire)
     target = batch["target"]
@@ -103,10 +131,14 @@ def _one_step(model, opt_state, batch, cfg, optimizer, augment, anchor,
                 logp = F.log_softmax(logits.float(), dim=-1)
                 loss = loss + weight * (-(a_prob * logp).sum(dim=-1).mean())
         with record_function("train.backward"):
-            grads = torch.autograd.grad(loss, params)
+            grads = list(torch.autograd.grad(loss, params))
+    loss = loss.detach()
+    if group is not None:
+        with record_function("train.allreduce"):
+            grads, loss = average_gradients(grads, loss, group)
     with record_function("train.optimizer"):
-        opt_state = optimizer.update(model, list(grads), opt_state)
-    return opt_state, loss.detach()
+        opt_state = optimizer.update(model, grads, opt_state)
+    return opt_state, loss
 
 
 def _check_cfg(model, cfg) -> None:
@@ -128,7 +160,7 @@ def _anchor(anchor):
 def make_train_step(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
                     expand_backend: str = "xla", augment: bool = False,
                     anchor=None, wire: str = "packed",
-                    collective_site: str | None = None):
+                    collective_site: str | None = None, mesh=None):
     """Returns step(model, opt_state, batch) -> (model, opt_state, loss).
 
     The step updates ``model``'s parameters in place (the JAX step donates
@@ -139,17 +171,20 @@ def make_train_step(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
     the packed records and targets are transformed on the device before
     the expansion. ``anchor=(anchor_model, anchor_cfg, weight)`` adds the
     KL-to-anchor term (the anchor is frozen). ``collective_site`` names a
-    fault point checked on the host before each call. ``expand_backend``
+    fault point checked on the host before each call. With ``mesh`` the
+    batch is this data rank's rows and the gradients and loss are averaged
+    over "data" (the returned loss is the global batch's). ``expand_backend``
     is accepted so configs carry over: the tensors' device picks the
     expansion (the CUDA kernel on the card, the plain version on the
     CPU)."""
     del expand_backend
     anchor = _anchor(anchor)
+    group = _data_group(mesh)
 
     def step(model, opt_state, batch):
         _check_cfg(model, cfg)
         opt_state, loss = _one_step(model, opt_state, batch, cfg, optimizer,
-                                    augment, anchor, wire)
+                                    augment, anchor, wire, group)
         return model, opt_state, loss
 
     return _with_collective_site(step, collective_site)
@@ -158,7 +193,7 @@ def make_train_step(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
 def make_train_step_many(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
                          expand_backend: str = "xla", augment: bool = False,
                          anchor=None, wire: str = "packed",
-                         collective_site: str | None = None):
+                         collective_site: str | None = None, mesh=None):
     """Returns step(model, opt_state, batches) -> (model, opt_state,
     losses).
 
@@ -166,9 +201,10 @@ def make_train_step_many(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
     with a leading steps dimension (K, B, ...) on every entry. One call
     runs K chained steps, equal to K single steps, and returns the K
     losses as one (K,) float32 tensor on the device; no value goes back to
-    the host between the steps."""
+    the host between the steps. ``mesh`` as for ``make_train_step``."""
     del expand_backend
     anchor = _anchor(anchor)
+    group = _data_group(mesh)
 
     def step(model, opt_state, batches):
         _check_cfg(model, cfg)
@@ -177,7 +213,7 @@ def make_train_step_many(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
         for i in range(k):
             opt_state, loss = _one_step(
                 model, opt_state, {n: v[i] for n, v in batches.items()},
-                cfg, optimizer, augment, anchor, wire)
+                cfg, optimizer, augment, anchor, wire, group)
             losses.append(loss)
         return model, opt_state, torch.stack(losses)
 

@@ -349,13 +349,25 @@ def test_warm_restart_keeps_weights_fresh_optimizer(data_root, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("data_parallel", 2, "A6"), ("tensor_parallel", 2, "A6"),
-    ("elastic", True, "A6"), ("profile", True, "A7")])
+    ("data_parallel", 2, "mesh 2x1 needs 2 devices, have 1"),
+    ("tensor_parallel", 2, "mesh 1x2 needs 2 devices, have 1"),
+    ("elastic", True, "mesh 2x1 needs 2 devices, have 1"),
+    ("profile", True, "A7")])
 def test_what_one_card_cannot_honour_raises(data_root, tmp_path, field,
                                             value, item):
-    exp = port_exp(data_root, tmp_path, **{field: value})
-    with pytest.raises(ValueError, match=item):
+    """Without a process group one rank is all there is: a layout of more
+    raises ConfigError naming it and the ranks there are. The elastic case
+    is an elastic run at the JAX package's elastic-test layout
+    (data_parallel=2); ``profile`` waits for ROADMAP A7."""
+    from deepgo_tpu_torch.parallel import ConfigError
+
+    kw = {field: value}
+    if field == "elastic":
+        kw["data_parallel"] = 2
+    exp = port_exp(data_root, tmp_path, **kw)
+    with pytest.raises(ValueError, match=item) as e:
         exp.init()
+    assert isinstance(e.value, ConfigError) == (field != "profile")
 
 
 def test_config_round_trips_through_jax(data_root, tmp_path):

@@ -46,7 +46,14 @@ def test_port_sources_found():
                    ("serving", "replay.py"), ("loop", "learner.py"),
                    ("loop", "service.py"), ("sessions", "store.py"),
                    ("sessions", "child.py"), ("training", "value.py"),
-                   ("data", "winners.py")):
+                   ("data", "winners.py"), ("utils", "watchdog.py"),
+                   ("parallel", "__init__.py"), ("parallel", "mesh.py"),
+                   ("parallel", "distributed.py"),
+                   ("parallel", "deadlines.py"),
+                   ("parallel", "liveness.py"), ("parallel", "tensor.py"),
+                   ("parallel", "zero.py"), ("parallel", "reshard.py"),
+                   ("parallel", "shard_map_step.py"),
+                   ("parallel", "elastic.py")):
         assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 
