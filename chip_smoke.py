@@ -161,8 +161,34 @@ then, each phase failing the run on the first disagreement:
    mode); the ``ELASTIC_RECOVERY`` record (recovery latency, steps lost)
    is printed.
 
+12. observability and chaos, each sub-path with the launch counts zeroed
+   just before it and read just after. (a) Phase 7's ``full`` run (B = 256,
+   60 steps) through ``Experiment.run`` twice, each on a registry of its
+   own: with ``profile=False``, then with ``profile=True``, whose
+   torch.profiler Chrome trace holds the span ranges by name and one
+   ``expand_planes_kernel`` event per launch (the window's margins and
+   any runtime launch without a device record are printed, and named if
+   the counts differ); ``attribute_run`` covers at
+   least 0.95 of the profiled run's wall with steps = 60 and the loader,
+   first-call, dispatch, validation and checkpoint buckets; the run's cost
+   ledger prices its train step; the forward's FLOP count is within 5 %
+   of ``analytic_flops`` on the card's "table" peak, and the unprofiled
+   run's MFU (analytic train FLOPs / step wall / peak) lies in (0, 1].
+   (b) The chaos acceptance campaign (brownout, kill and corrupt) over
+   phase 9f's trace on a defended two-replica fleet with the lock-order
+   sanitizer armed: no future lost, no wrong answer, the corrupt replica
+   canary-detected, no lock-order cycle, launches = the fleet's forwards;
+   the brownout campaign undefended and defended; a cached fleet through
+   a mid-trace reload and a kill (no stale hit). The SLO verdicts and
+   interactive p50 / p99 are recorded, not gated. (c) A ``full`` engine under the runtime
+   sanitizer (``DEEPGO_XLACHECK``): mixed-size bursts after warm-up find
+   no new signature and no guard hit; an unstaged input planted inside a
+   guard is caught twice (the sync check and the input check). (d) Phase
+   10a's loop with ``telemetry=True``: its checks, and the dash's ``--json``
+   frame over its store with the watchlist's series non-empty.
+
 ``--phases LIST`` (e.g. ``--phases 11``) runs only the listed phases of
-4-11 (and the phases their nets come from); 1-3 always run.
+4-12 (and the phases their nets come from); 1-3 always run.
 ``--phases 11 --cards 4`` is phase 11 on four cards instead, one NCCL rank
 per card (it exits 1 without four cards): the layouts 4 x 1, 2 x 2 and
 both with ZeRO on the float32 config of (a) at a global B = 64, each held
@@ -294,7 +320,10 @@ TRAIN_RUN = dict(      # the full config through Experiment.run
     batch_size=256, rate=TRAIN_RATE, steps_per_call=10, print_interval=10,
     validation_interval=30, validation_size=512, keep_checkpoints=1,
     seed=SEED, train_split="train", validation_split="validation",
-    test_split="validation")
+    test_split="validation",
+    # pricing runs one extra step; phase 12 (a) runs the ledger, and the
+    # launch checks of phases 7 and 11 count the run's steps alone
+    cost_ledger=False)
 TIMED = ((256, 1), (256, 10), (1024, 1), (1024, 10))  # (batch, K) per call
 STEP_CARD_VS_CPU_TOL = 1e-5
 STEP_CARD_VS_CPU_BATCH = 64
@@ -384,6 +413,24 @@ ELASTIC_RUN = dict(loader_threads=0, steps_per_call=1, print_interval=5,
                    keep_checkpoints=2)
 ELASTIC_ITERS, ELASTIC_KILL_STEP = 400, 7
 ELASTIC_BEAT_S, ELASTIC_MISSES = 0.5, 10
+
+# Phase 12, observability and chaos. 12b's campaign mirrors the JAX
+# package's chaos bench: no supervisor restarts (a killed dispatcher
+# crosses into the fleet's failover and respawn), its SLO and backoffs.
+# Its fleets serve one rung: the port's bf16 rows are bitwise within a
+# rung but not across rungs (another batch size, another cuDNN algorithm;
+# ROADMAP C3), and the campaign holds every answer to its ground truth at
+# rtol 1e-4, which XLA's rung-invariant rows meet on the JAX package's.
+OBS_TRAIN_STEPS = TRAIN_STEPS
+ATTRIBUTION_BAR = 0.95     # tests/test_attribution.py's bar
+FLOP_BAND = 0.05           # tests/test_costmodel.py's band
+CHAOS_SLO = dict(slo_threshold_s=0.15, slo_target=0.95)
+CHAOS_SUPERVISOR = dict(max_restarts=0, backoff_base_s=0.01,
+                        backoff_cap_s=0.05)
+CHAOS_FLEET = dict(respawn_base_s=0.01, respawn_cap_s=0.05)
+CHAOS_ENGINE = dict(buckets=(32,), max_wait_ms=2.0)
+SANITIZER_BURSTS = (1, 5, 20, 100, 7, 300, 2)
+TELEMETRY_INTERVAL_S = 0.25
 
 
 def check(ok: bool, what: str) -> None:
@@ -2298,16 +2345,18 @@ def check_buffer_games(buffer_dir: str) -> dict:
     return {"games": view.num_games, "positions": hi - lo}
 
 
-def phase_loop(model, tmp) -> dict:
+def phase_loop(model, tmp, telemetry: bool = False) -> dict:
     """10a: ``ExpertIterationLoop`` on ``full`` from phase 4's weights:
-    actors through a two-replica fleet, the learner's windows, the gate."""
+    actors through a two-replica fleet, the learner's windows, the gate
+    (12d: with the telemetry plane on)."""
     cfg = policy_cnn.CONFIGS["full"]
     seed = os.path.join(tmp, "seed.npz")
     save_seed_checkpoint(model, seed)
     run_dir = os.path.join(tmp, "loop")
-    loop = ExpertIterationLoop(run_dir, LoopConfig(**LOOP, seed=SEED),
-                               loop_learner_config(), seed_checkpoint=seed,
-                               device=DEVICE)
+    loop = ExpertIterationLoop(
+        run_dir, LoopConfig(**LOOP, seed=SEED, telemetry=telemetry,
+                            telemetry_interval_s=TELEMETRY_INTERVAL_S),
+        loop_learner_config(), seed_checkpoint=seed, device=DEVICE)
     boards = serving_boards(np.random.default_rng(SEED + 10),
                             LOOP_PROBE_BOARDS)
     probes = watch_gates(loop, boards, tmp)
@@ -2480,6 +2529,8 @@ def write_value_split(root: str) -> None:
 
 def value_step_card_vs_cpu(root: str) -> dict:
     """One float32 value step (TF32 off) on the card against the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = value_cnn.ValueConfig(compute_dtype="float32")
     ds = GoDataset(root, "train")
     ix = value_training.decided_indices(ds)
@@ -3204,6 +3255,459 @@ def phase_four_cards() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def private_registry():
+    """A fresh process registry: the attribution of one run reads the
+    close-time snapshot of the process registry, so a run measured on its
+    own must not find the counts of the runs before it there."""
+    from deepgo_tpu_torch.obs import registry as obs_registry
+
+    obs_registry._default = obs_registry.MetricsRegistry()
+
+
+def trace_kernel_events(trace_path: str, needle: str) -> dict:
+    """The device kernel events of a torch.profiler Chrome trace whose name
+    holds ``needle``: their count (``kernels``), every event name
+    (``names``), the capture window's margins around them in microseconds
+    (``start_margin_us``: window start to the first such kernel;
+    ``end_margin_us``: the last one's end to the window's end), the least
+    launch-to-start gap over every kernel matched to its runtime launch
+    (``min_launch_gap_us``: below 0 the device clock runs behind the
+    host's) and the runtime launches that have no device event
+    (``orphans``, each with its offset into the window and the ranges
+    around it)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    hits = [e for e in device if e.get("cat") == "kernel"
+            and needle in str(e.get("name", ""))]
+    instants = {e.get("name"): e["ts"] for e in events
+                if e.get("ph") == "i" and "ts" in e}
+    start = instants.get("Iteration Start: PyTorch Profiler")
+    end = instants.get("Record Window End")
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if str(e.get("cat", "")).startswith("cuda_")
+                 and "Launch" in str(e.get("name"))
+                 and "correlation" in e.get("args", {})}
+    seen = {e.get("args", {}).get("correlation") for e in device}
+    gaps = [e["ts"] - launch_ts[c] for e in device
+            if (c := e.get("args", {}).get("correlation")) in launch_ts]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    orphans = [{"us_into_window": ts - (start or 0), "ranges": [
+        r["name"] for r in ranges
+        if r["ts"] <= ts <= r["ts"] + r.get("dur", 0)]}
+        for c, ts in sorted(launch_ts.items(), key=lambda kv: kv[1])
+        if c not in seen]
+    return {"kernels": len(hits), "names": {e.get("name") for e in events},
+            "start_margin_us": (min(e["ts"] for e in hits) - start
+                                if hits and start is not None else None),
+            "end_margin_us": (end - max(e["ts"] + e.get("dur", 0)
+                                        for e in hits)
+                              if hits and end is not None else None),
+            "min_launch_gap_us": min(gaps, default=None),
+            "orphans": orphans}
+
+
+def obs_train_run(root: str, profile: bool) -> dict:
+    """One 60-step ``Experiment.run`` of phase 7's config on a private
+    registry; with ``profile`` the launch counts are zeroed just before."""
+    from deepgo_tpu_torch.obs import attribute_run
+
+    private_registry()
+    exp = Experiment(train_config(root, profile=profile, cost_ledger=True),
+                     run_id=f"obs-{'profiled' if profile else 'plain'}",
+                     device=DEVICE)
+    exp.init()
+    cuda_expand.reset_launches()
+    summary = exp.run(OBS_TRAIN_STEPS)
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    att = attribute_run(exp.run_path)["hosts"]["0"]
+    return {"exp": exp, "launches": launches, "sym_launches": sym,
+            "samples_per_sec": summary["samples_per_sec"],
+            "attribution": att}
+
+
+def span_cost_us(n: int = 2000) -> dict:
+    """Host microseconds of one span with no profiler and no sink, with
+    its profiler bridge (``record_function`` and NVTX ranges) and with the
+    bridge replaced by a no-op: the bridge's own cost is the difference."""
+    from deepgo_tpu_torch.obs import spans
+    from deepgo_tpu_torch.obs.registry import MetricsRegistry
+
+    reg = MetricsRegistry()
+
+    def per_span() -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with spans.span("span-cost", registry=reg):
+                pass
+        return (time.perf_counter() - t0) / n * 1e6
+
+    bridge = spans._profiler_range
+    out = {"bridge": per_span()}
+    spans._profiler_range = lambda name: contextlib.nullcontext()
+    try:
+        out["no_bridge"] = per_span()
+    finally:
+        spans._profiler_range = bridge
+    out["bridge_again"] = per_span()
+    return out
+
+
+def phase_profiled_training() -> dict:
+    """12a: phase 7's training run with ``profile=True``: the trace holds
+    the span names and one expansion-kernel event per launch, the
+    attribution covers the wall, and the cost ledger prices the step."""
+    from deepgo_tpu_torch.obs import CostLedger, costmodel
+    from deepgo_tpu_torch.obs.registry import MetricsRegistry
+    from deepgo_tpu_torch.utils.profiling import TRACE_FILE
+
+    cfg = policy_cnn.CONFIGS["full"]
+    batch = TRAIN_RUN["batch_size"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-obs-") as root:
+        write_split(root)
+        plain = obs_train_run(root, profile=False)
+        prof = obs_train_run(root, profile=True)
+        run_path = prof["exp"].run_path
+        t0 = time.perf_counter()
+        tr = trace_kernel_events(os.path.join(run_path, "trace", TRACE_FILE),
+                                 "expand_planes_kernel")
+        kernels, names = tr["kernels"], tr.pop("names")
+        trace_read_s = time.perf_counter() - t0
+        events = read_jsonl(os.path.join(run_path, "metrics.jsonl"))
+    eval_batches = 2 * math.ceil(TRAIN_RUN["validation_size"] / batch)
+    check(prof["launches"] == OBS_TRAIN_STEPS + eval_batches
+          and prof["sym_launches"] == 0,
+          f"profiled run: expansion launches {prof['launches']} != "
+          f"{OBS_TRAIN_STEPS} steps + {eval_batches} eval batches")
+    check(kernels == prof["launches"], f"trace: {kernels} expansion-kernel "
+          f"events != {prof['launches']} launches: {json.dumps(tr)}")
+    check({"validate", "checkpoint_save", "train.forward"} <= names,
+          "trace: the span and step ranges are in it by name")
+    att = prof["attribution"]
+    check(att["attributed_fraction"] >= ATTRIBUTION_BAR
+          and abs(att["residual_fraction"]) <= 1 - ATTRIBUTION_BAR
+          and att["steps"] == OBS_TRAIN_STEPS,
+          f"attribution: {json.dumps(att)}")
+    missing = {"loader_wait", "compile", "dispatch", "validate",
+               "checkpoint"} - set(att["buckets"])
+    check(not missing, f"attribution: buckets {sorted(missing)} missing")
+    ledger_rows = [e for e in events if e["kind"] == "cost_ledger"]
+    check([(e["fn"], e["bucket"], e["source"]) for e in ledger_rows]
+          == [("train_step", batch, "flop_counter")],
+          f"the run's cost ledger rows: {ledger_rows}")
+    ledger = CostLedger(registry=MetricsRegistry(), device=DEVICE)
+    (fwd,) = costmodel.ladder_entries(ledger, cfg, buckets=(batch,))
+    analytic = costmodel.analytic_flops(cfg, batch)
+    check(ledger.peak.source == "table" and ledger.peak.flops_per_s,
+          f"peak row: {ledger.peak}")
+    check(fwd.source == "flop_counter"
+          and abs(fwd.flops - analytic) / analytic <= FLOP_BAND,
+          f"forward: FLOP counter {fwd.flops} vs analytic {analytic}")
+    train_flops = costmodel.analytic_train_flops(cfg, batch)
+    mfu = {}
+    for label, run in (("plain", plain), ("profiled", prof)):
+        step_s = run["attribution"]["wall_s"] / OBS_TRAIN_STEPS
+        mfu[label] = train_flops / step_s / ledger.peak.flops_per_s
+    check(0 < mfu["plain"] <= 1, f"MFU {mfu['plain']} outside (0, 1]")
+    span_us = span_cost_us()
+    # two spans (validate, checkpoint_save) per validation interval
+    span_share = 2 * span_us["bridge"] / (
+        TRAIN_RUN["validation_interval"] * 1e6
+        * plain["attribution"]["wall_s"] / OBS_TRAIN_STEPS)
+    out = {"span_us": span_us, "span_share_of_steps": span_share,
+        "launches": prof["launches"], "trace_kernel_events": kernels,
+        "trace_read_s": trace_read_s,
+        "trace_window": {k: tr[k] for k in (
+            "start_margin_us", "end_margin_us", "min_launch_gap_us")}
+        | {"orphan_launches": len(tr["orphans"])},
+        "attribution": att, "attribution_unprofiled": plain["attribution"],
+        "samples_per_sec": {"profile_off": plain["samples_per_sec"],
+                            "profile_on": prof["samples_per_sec"]},
+        "step_ms": {k: 1e3 * r["attribution"]["wall_s"] / OBS_TRAIN_STEPS
+                    for k, r in (("profile_off", plain),
+                                 ("profile_on", prof))},
+        "forward_flops": fwd.flops, "analytic_forward_flops": analytic,
+        "forward_hbm_peak_bytes": fwd.hbm_peak_bytes,
+        "train_row": ledger_rows[0], "analytic_train_flops": train_flops,
+        "peak": ledger.peak.to_dict(), "mfu": mfu,
+        "attribution_roofline": att.get("roofline")}
+    print("profiled training: " + json.dumps(out), flush=True)
+    return out
+
+
+class ForwardCount:
+    """Every engine forward in the process (warm-ups included), counted at
+    ``InferenceEngine._run_forward``: a campaign's killed replica takes its
+    own count with it, so the fleet's stats cannot give the total."""
+
+    n = 0
+    _lock = threading.Lock()
+
+    @classmethod
+    @contextlib.contextmanager
+    def counting(cls):
+        from deepgo_tpu_torch.serving.engine import InferenceEngine
+
+        run_forward = InferenceEngine._run_forward
+
+        def counted(self, *args, **kwargs):
+            with cls._lock:
+                cls.n += 1
+            return run_forward(self, *args, **kwargs)
+
+        cls.n = 0
+        InferenceEngine._run_forward = counted
+        try:
+            yield cls
+        finally:
+            InferenceEngine._run_forward = run_forward
+
+
+def chaos_campaign(model, cfg, label, scenario, defended: bool,
+                   canary: bool, trace, cache=None,
+                   reload_params=None) -> dict:
+    """One campaign on a fresh two-replica fleet; the launch counts are
+    zeroed just before it. ``interactive`` is the replayed interactive
+    requests' latency at the router (the ground-truth pass left out)."""
+    from deepgo_tpu_torch.chaos import (CampaignConfig, CampaignRunner,
+                                        defended_config)
+
+    base = FleetConfig(**CHAOS_FLEET)
+    fleet = fleet_policy_engine(
+        model, cfg, replicas=2, config=EngineConfig(**CHAOS_ENGINE),
+        fleet=defended_config(base) if defended else base,
+        supervisor=SupervisorConfig(**CHAOS_SUPERVISOR), cache=cache,
+        device=DEVICE, name=label)
+    try:
+        fleet.warmup()
+        runner = CampaignRunner(fleet, trace, scenario,
+                                CampaignConfig(canary=canary, **CHAOS_SLO),
+                                reload_params=reload_params)
+        ground_truth, marks = runner.ground_truth, {}
+
+        def marked():
+            out = ground_truth()
+            marks["n"] = len(fleet._tier_lat["interactive"])
+            return out
+
+        runner.ground_truth = marked
+        with ForwardCount.counting() as count:
+            cuda_expand.reset_launches()
+            t0 = time.perf_counter()
+            report = runner.run()
+            seconds = time.perf_counter() - t0
+            launches = cuda_expand.launches
+            forwards = count.n
+        lat = 1e3 * np.array(list(fleet._tier_lat["interactive"])[marks["n"]:])
+    finally:
+        fleet.close()
+        faults.reset()
+    interactive = {"requests": int(lat.size),
+                   "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99))} if lat.size \
+        else {"requests": 0}
+    return {"report": report, "launches": launches, "forwards": forwards,
+            "seconds": seconds, "interactive": interactive,
+            "slo": report["slo"], "grade": report["grade"]}
+
+
+def check_answers(run: dict, label: str) -> None:
+    answers = run["report"]["answers"]
+    check(answers["lost"] == 0, f"{label}: {answers['lost']} futures lost")
+    check(answers["wrong"] == 0, f"{label}: {answers['wrong']} wrong "
+          f"answers returned: {answers['wrong_detail']}")
+    check(run["launches"] == run["forwards"] > 0,
+          f"{label}: expansion launches {run['launches']} != fleet "
+          f"forwards {run['forwards']}")
+
+
+def phase_chaos(model) -> dict:
+    """12b: the acceptance campaign (brownout, kill, corrupt) over phase
+    9f's trace on a defended two-replica fleet with the lock-order
+    sanitizer armed; the brownout campaign undefended and defended; and a
+    cached fleet through a mid-trace reload and a kill. The campaigns'
+    ground-truth pass evaluates every trace position first, so on a cached
+    fleet every replayed request would be a hit and no fault would reach a
+    caller's path: the attack legs run uncached, as the JAX package's
+    chaos bench runs them, and the cache gets the leg whose reload
+    invalidates it."""
+    from deepgo_tpu_torch.analysis import lockcheck
+    from deepgo_tpu_torch.chaos import (FaultEvent, Scenario,
+                                        acceptance_scenario,
+                                        brownout_scenario)
+
+    cfg = policy_cnn.CONFIGS["full"]
+    trace = build_synthetic_requests(SGF_DIR, requests=REPLAY_REQUESTS,
+                                     seed=SEED)
+    span = trace[-1]["t"] - trace[0]["t"]
+    flight_dir = tempfile.mkdtemp(prefix="chip-smoke-chaos-")
+    rec = configure_flight(flight_dir)
+    try:
+        lockcheck.enable(True)
+        lockcheck.reset()
+        try:
+            acc = chaos_campaign(model, cfg, "chaos-accept",
+                                 acceptance_scenario(span), True, True,
+                                 trace)
+            locks = lockcheck.report()
+        finally:
+            lockcheck.enable(None)
+            lockcheck.reset()
+        rep = acc["report"]
+        check_answers(acc, "chaos acceptance")
+        check(bool((rep["canary"] or {}).get("detected")),
+              f"chaos: corruption never canary-detected: {rep['canary']}")
+        check(locks["cycles"] == [], f"lock-order inversions: "
+              f"{locks['cycles']}")
+        ab = {arm: chaos_campaign(model, cfg, f"chaos-{arm}",
+                                  brownout_scenario(span), arm == "on",
+                                  False, trace)
+              for arm in ("off", "on")}
+        for arm, run in ab.items():
+            check_answers(run, f"brownout {arm}")
+        cached = chaos_campaign(
+            model, cfg, "chaos-cache", Scenario(
+                name="cache-reload-kill", seed=17, events=(
+                    FaultEvent(at_s=0.35 * span, kind="reload"),
+                    FaultEvent(at_s=0.55 * span, kind="kill", replica=0))),
+            True, False, trace, cache=CacheConfig(), reload_params=model)
+        check_answers(cached, "cache leg")
+        cache_block = cached["report"]["cache"]
+        check(cache_block["stale_hits"] == 0
+              and cache_block["invalidations"] >= 1
+              and all(r["ok"] for r in cached["report"]["reloads"]),
+              f"cache leg: {cache_block}, reloads "
+              f"{cached['report']['reloads']}")
+    finally:
+        dumps = len(rec.dumps)
+        rec.close()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+
+    def brief(run):
+        return {"slo": run["slo"], "interactive": run["interactive"],
+                "launches": run["launches"], "seconds": run["seconds"],
+                "counters": run["report"]["counters"],
+                "answers": {k: run["report"]["answers"][k]
+                            for k in ("checked", "wrong", "lost")}}
+
+    out = {"launches": sum(r["launches"] for r in
+                           (acc, *ab.values(), cached)),
+           "acceptance": brief(acc) | {
+               "canary": rep["canary"], "executed": rep["executed"],
+               "grade": acc["grade"]},
+           "flight_dumps": dumps,
+           "locks": {"tracked": len(locks["locks"]),
+                     "edges": sum(len(v) for v in locks["edges"].values()),
+                     "cycles": len(locks["cycles"]),
+                     "hazards": locks["hazards"]},
+           "brownout_ab": {arm: brief(run) for arm, run in ab.items()},
+           "cache_leg": brief(cached) | {"cache": cache_block}}
+    print("chaos: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_sanitizers(model) -> dict:
+    """12c: a ``full`` engine with the runtime sanitizer armed: mixed-size
+    submits after warm-up find no new signature and no guard hit; a
+    deliberately unstaged input is caught."""
+    from deepgo_tpu_torch.analysis import cudacheck
+
+    cfg = policy_cnn.CONFIGS["full"]
+    cudacheck.enable(True)
+    cudacheck.reset()
+    try:
+        engine = policy_engine(model, cfg, config=EngineConfig(
+            max_wait_ms=2.0), device=DEVICE, name="sanitized")
+        try:
+            engine.warmup()
+            gen = np.random.default_rng(SEED + 12)
+            cuda_expand.reset_launches()
+            before = engine.stats()["forwards"]
+            for n in SANITIZER_BURSTS:
+                packed, player, rank = random_records(gen, n)
+                futures = [engine.submit(packed[i], int(player[i]),
+                                         int(rank[i])) for i in range(n)]
+                for f in futures:
+                    check(bool(np.isfinite(f.result()).all()),
+                          "sanitized engine: finite rows")
+            launches = cuda_expand.launches
+            forwards = engine.stats()["forwards"] - before
+            clean = cudacheck.report()
+        finally:
+            engine.close()
+        check(launches == forwards > 0, f"sanitized engine: launches "
+              f"{launches} != forwards {forwards}")
+        check(clean["steady_state_compiles"] == 0 and clean["storms"] == []
+              and clean["transfers"] == [],
+              f"sanitizer findings after warm-up: {json.dumps(clean)}")
+        forward = make_log_prob_fn(cfg, device=DEVICE)
+        packed, player, rank = random_records(gen, 8)
+        staged = cudacheck.stage_h2d(packed, player, rank, device=DEVICE)
+        caught = []
+        for name, inputs, args in (
+                ("planted-sync", (), (packed, *staged[1:])),
+                ("planted-input", (packed, *staged[1:]), staged)):
+            try:
+                with cudacheck.transfer_guard(name, device=DEVICE,
+                                              inputs=inputs):
+                    forward(model, *args)
+            except RuntimeError as e:
+                caught.append((name, type(e).__name__, str(e)[:120]))
+        planted = cudacheck.report()["transfers"]
+        check(torch.cuda.get_sync_debug_mode() == 0,
+              "the sync check is off again after the guards")
+    finally:
+        cudacheck.enable(None)
+        cudacheck.reset()
+    check([c[0] for c in caught] == ["planted-sync", "planted-input"]
+          and [p["tag"] for p in planted] == ["planted-sync",
+                                              "planted-input"],
+          f"planted unstaged inputs: caught {caught}, recorded {planted}")
+    out = {"launches": launches, "forwards": forwards,
+           "watched": clean["watched"], "caught": caught}
+    print("sanitizers: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_telemetry(model) -> dict:
+    """12d: phase 10a's loop with ``telemetry=True``; the dash renders its
+    store once."""
+    from deepgo_tpu_torch.obs.dash import collect_dash, render_dash
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-telemetry-") as tmp:
+        loop = phase_loop(model, tmp, telemetry=True)
+        frame = collect_dash(os.path.join(tmp, "loop"))
+        text = render_dash(frame)
+    check(frame["mode"] == "store" and frame["samples"] >= 2
+          and bool(frame["watchlist"]),
+          f"dash: {frame['samples']} samples, watchlist "
+          f"{sorted(frame['watchlist'])}")
+    print("dash --json: " + json.dumps(frame), flush=True)
+    print(text, flush=True)
+    return {"loop": loop, "samples": frame["samples"],
+            "watchlist": sorted(frame["watchlist"]),
+            "anomaly_totals": frame["anomaly_totals"]}
+
+
+def phase_observability() -> dict:
+    """Phase 12: observability and chaos on the card."""
+    t0 = time.perf_counter()
+    model = fresh_model()
+    out = {"profiled_training": phase_profiled_training()}
+    t = {"12a": time.perf_counter() - t0}
+    out["chaos"] = phase_chaos(model)
+    t["12b"] = time.perf_counter() - t0 - sum(t.values())
+    out["sanitizers"] = phase_sanitizers(model)
+    t["12c"] = time.perf_counter() - t0 - sum(t.values())
+    out["telemetry"] = phase_telemetry(model)
+    t["12d"] = time.perf_counter() - t0 - sum(t.values())
+    out["seconds"] = time.perf_counter() - t0
+    out["sub_seconds"] = t
+    print(f"phase 12: {out['seconds']:.2f} s " + json.dumps(t), flush=True)
+    return out
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -3224,7 +3728,7 @@ def parse_phases(argv: list) -> tuple[set, int]:
     """``--phases 4,11`` (default: all) and ``--cards N`` (default 1).
     Phases 1-3 always run; a phase that needs an earlier one's net brings
     it along (5-10 need phase 4's, 6, 8 and 9 phase 5's too)."""
-    phases, cards = set(range(4, 12)), 1
+    phases, cards = set(range(4, 13)), 1
     args = list(argv)
     while args:
         flag = args.pop(0)
@@ -3235,8 +3739,8 @@ def parse_phases(argv: list) -> tuple[set, int]:
         else:
             raise SystemExit(f"chip_smoke: unknown argument {flag!r}; use "
                              "--phases LIST and --cards N")
-    if not phases <= set(range(1, 12)):
-        raise SystemExit(f"chip_smoke: phases run from 1 to 11: {phases}")
+    if not phases <= set(range(1, 13)):
+        raise SystemExit(f"chip_smoke: phases run from 1 to 12: {phases}")
     if cards not in (1, PAR_CARDS) or (cards > 1 and phases != {11}):
         raise SystemExit(f"chip_smoke: --cards {PAR_CARDS} goes with "
                          "--phases 11 alone")
@@ -3353,6 +3857,19 @@ def main() -> int:
         expand_paths |= {f"dp4_rank{r}": n
                          for r, n in enumerate(par4["launches"])}
         summary["parallel_4_cards"] = par4
+    if 12 in phases:
+        obs = phase_observability()
+        expand_paths |= {
+            "obs_profiled_training": obs["profiled_training"]["launches"],
+            "obs_chaos_fleet": obs["chaos"]["launches"],
+            "obs_sanitized_engine": obs["sanitizers"]["launches"],
+            **{f"obs_{k}": v for k, v in
+               obs["telemetry"]["loop"]["launches_by_path"].items()}}
+        summary["observability_path"] = obs
+        sps = obs["profiled_training"]["samples_per_sec"]
+        if 7 in phases:
+            sps = {"phase_7": train["run"]["samples_per_sec"], **sps}
+        print("training samples/s: " + json.dumps(sps), flush=True)
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512

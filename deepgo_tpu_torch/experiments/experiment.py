@@ -29,9 +29,13 @@ remesh=...)`` restores under another layout (``parallel/reshard.py``).
 ``elastic=True`` threads the ``dist_collective`` fault site through the
 step; ``parallel/elastic.py`` drives elastic runs.
 
-``profile=True`` waits for the observability adapters (the span trace, the
-flight recorder and the cost ledger arrive with them; ``cost_ledger`` is
-accepted and has no effect yet).
+Observability, as in the JAX package: ``train`` streams its spans
+(``validate``, ``checkpoint_save``) to ``<run>/trace.jsonl``, arms the
+flight recorder in the run directory, and feeds the attribution histograms
+(``obs/attribution.py``); ``profile=True`` captures a torch.profiler trace
+of the run into ``<run>/trace``; ``cost_ledger`` prices the train step once
+at train start (``obs/costmodel.py``), and a failure to price it prints and
+training goes on.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from .. import resolve_device
 from ..data.dataset import GoDataset
 from ..data.loader import AsyncLoader, to_device
 from ..models import policy_cnn
-from ..obs import get_registry
+from ..obs import JsonlSink, get_registry, span, trace_to
 from ..ops.wire import nibble_pack_np
 from ..parallel import data_sharding, distributed, make_mesh, reshard, zero
 from ..parallel.liveness import ConfigError
@@ -63,13 +67,6 @@ from ..utils.gitinfo import git_sha
 from ..utils.metrics import MetricsWriter, append_registry
 from ..utils.retry import retry_with_backoff
 from . import checkpoint as ckpt
-
-# configurations the port cannot honour yet, and the ROADMAP item each
-# waits on
-_UNSUPPORTED = (
-    ("profile", bool, "ROADMAP A7 (observability adapters)"),
-)
-
 
 @dataclass(frozen=True)
 class ExperimentConfig:
@@ -177,11 +174,6 @@ class Experiment:
 
     def init(self) -> None:
         cfg = self.config
-        for field, unsupported, item in _UNSUPPORTED:
-            if unsupported(getattr(cfg, field)):
-                raise ValueError(
-                    f"{field}={getattr(cfg, field)!r} needs an unported "
-                    f"layer: it waits for {item}")
         if cfg.faults and not os.environ.get("DEEPGO_FAULTS"):
             faults.install(cfg.faults)
         self._init_mesh()
@@ -195,7 +187,7 @@ class Experiment:
         self.placement = reshard.Placement.for_model(
             self.model_cfg, self.mesh, tensor_parallel=cfg.tensor_parallel,
             zero_opt=cfg.zero_opt)
-        self.optimizer = for_config(cfg)
+        self.optimizer = self.base_optimizer = for_config(cfg)
         if self.mesh.shape["data"] > 1 and cfg.zero_opt:
             self.optimizer = zero.shard_optimizer(self.optimizer,
                                                   self.placement)
@@ -292,16 +284,26 @@ class Experiment:
         return summary
 
     def train(self, iters: int) -> dict:
+        from ..utils.profiling import trace
+
         if not self.initialized:
             self.init()
-        # rank 0 writes the run's metrics.jsonl, every other rank a stream
-        # of its own
-        name = ("metrics.jsonl" if self.rank == 0
-                else f"metrics-rank{self.rank:04d}.jsonl")
-        metrics = MetricsWriter(os.path.join(self.run_path, name))
+        # rank 0 writes the run's metrics.jsonl, trace.jsonl and trace/,
+        # every other rank streams of its own
+        suffix = "" if self.rank == 0 else f"-rank{self.rank:04d}"
+        metrics = MetricsWriter(os.path.join(self.run_path,
+                                             f"metrics{suffix}.jsonl"))
+        # spans stream for exactly the duration of the run (trace_to
+        # restores the previous sink even when training raises)
+        trace_sink = JsonlSink(os.path.join(self.run_path,
+                                            f"trace{suffix}.jsonl"))
         try:
-            return self._train(iters, metrics)
+            with trace_to(trace_sink), trace(
+                    os.path.join(self.run_path, f"trace{suffix}")
+                    if self.config.profile else None, metrics=metrics):
+                return self._train(iters, metrics)
         finally:
+            trace_sink.close()
             metrics.close()
 
     def _data_shard(self) -> tuple[int, int] | None:
@@ -353,6 +355,16 @@ class Experiment:
         obs_wall = reg.counter(
             "deepgo_train_wall_seconds_total",
             "train-loop wall time: the attribution denominator")
+        # the crash flight recorder dumps into the run directory (kills,
+        # restarts, SLO fast burns); an earlier configuration (an elastic
+        # run's shared directory) is kept
+        from ..obs.sentinel import configure_flight, get_flight_recorder
+
+        flight = get_flight_recorder()
+        if not flight.enabled:
+            flight = configure_flight(self.run_path)
+        if cfg.cost_ledger:
+            self._price_train_step(reg, metrics)
         called: set = set()  # phase=first vs phase=steady
         val_batches = self._validation_batches()
 
@@ -458,16 +470,21 @@ class Experiment:
                         obs_ewma.set(ewma)
                         obs_sps.set(sps)
                         if self.step % cfg.validation_interval == 0:
-                            last_val = self.validate(val_batches)
+                            with span("validate", step=self.step):
+                                last_val = self.validate(val_batches)
                             metrics.write("validation", step=self.step,
                                           **last_val)
-                            self._save_periodic()
+                            with span("checkpoint_save", step=self.step):
+                                self._save_periodic()
                             print(f"validation at iteration {self.step}: "
                                   f"cost={last_val['cost']:.4f}, "
                                   f"accuracy={last_val['accuracy']:.4f}")
                         else:
                             print(f"training {ewma:.4f} (samples per second "
                                   f"{sps:.0f})")
+                        # one registry snapshot per print window keeps the
+                        # flight recorder's ring current (a no-op unarmed)
+                        flight.tick()
                         # the elastic hook last, after the periodic
                         # checkpoint: a HostLost raised here finds the
                         # newest checkpoint already on disk
@@ -490,6 +507,25 @@ class Experiment:
             "samples_per_sec": total_sps,
             "last_validation": last_val,
         }
+
+    def _price_train_step(self, reg, metrics) -> None:
+        """Price this run's train step once (``costmodel.train_entry``: one
+        step of a fresh model under the FLOP counter, before the loop's
+        wall clock starts); the ledger gauges ride the close-time
+        ``obs_snapshot``, so the offline attribution reports MFU. A
+        failure prints and training goes on without an MFU row."""
+        from ..obs import costmodel
+
+        try:
+            ledger = costmodel.CostLedger(registry=reg, sink=metrics,
+                                          device=self.device)
+            costmodel.train_entry(
+                ledger, self.model_cfg, self.config.batch_size,
+                optimizer=self.base_optimizer, wire=self.wire,
+                augment=self.config.augment)
+            costmodel.set_cost_ledger(ledger)
+        except Exception as e:  # noqa: BLE001 — observability never blocks
+            print(f"cost ledger: skipped ({e!r})", flush=True)
 
     # ---- validation / evaluation ----
 

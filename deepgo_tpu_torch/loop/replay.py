@@ -50,10 +50,10 @@ import io
 import json
 import os
 import shutil
-import threading
 
 import numpy as np
 
+from ..analysis.lockcheck import make_rlock
 from .. import BOARD_SIZE
 from ..data.dataset import (M_BLACK_RANK, M_PLAYER, M_WHITE_RANK, M_X, M_Y,
                             META_COLS, RECORD_SHAPE)
@@ -255,7 +255,7 @@ class ReplayBuffer:
         self.capacity_positions = capacity_positions
         self._metrics = metrics
         # reentrant: the seal path re-enters through ingest bookkeeping
-        self._lock = threading.RLock()
+        self._lock = make_rlock("loop.replay")
         os.makedirs(os.path.join(buffer_dir, GAMES_DIR), exist_ok=True)
         self._recover()
 

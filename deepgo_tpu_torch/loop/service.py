@@ -4,9 +4,9 @@ The port of ``deepgo_tpu/loop/service.py``: the same components, config
 and supervision, on ``device`` (``cuda`` unless asked for the CPU). The
 fleet serves the champion from a module of its own; the learner trains
 another, loaded from the same checkpoint, and the fleet takes the
-learner's weights only through a gate pass's ``reload``. The telemetry
-plane (``telemetry=True``) waits for the port of ``obs/timeseries`` and
-``obs/anomaly``.
+learner's weights only through a gate pass's ``reload``. ``telemetry=True``
+samples the registry into ``<run_dir>/ts-NNNN.jsonl`` and streams the
+anomaly watchlist over it (``obs/timeseries.py``, ``obs/anomaly.py``).
 
 ``ExpertIterationLoop`` wires the four components into one supervised,
 long-running pipeline — the unification of ``tools/r5_value_loop.sh``'s
@@ -53,6 +53,7 @@ import time
 
 import torch
 
+from ..analysis.lockcheck import make_lock
 from .. import resolve_device
 from ..experiments import ExperimentConfig
 from ..experiments import checkpoint as ckpt
@@ -120,8 +121,11 @@ class LoopConfig:
     # over the fleet's serving path, streaming trace_request records to
     # <run_dir>/trace.jsonl
     trace: bool = False
-    # the fleet telemetry plane (obs/timeseries.py + obs/anomaly.py of
-    # the JAX package): not ported yet, so True raises
+    # the fleet telemetry plane (obs/timeseries.py + obs/anomaly.py):
+    # sample the registry into <run_dir>/ts-NNNN.jsonl on this cadence
+    # and stream the anomaly watchlist over it — anomaly events land in
+    # loop.jsonl, pin their series window in the store, and trip the
+    # flight recorder; obs/dash.collect_dash(run_dir) renders the history
     telemetry: bool = False
     telemetry_interval_s: float = 1.0
 
@@ -141,11 +145,6 @@ class ExpertIterationLoop:
                  learner_config: ExperimentConfig | None = None,
                  seed_checkpoint: str | None = None, device="cuda"):
         self.config = config or LoopConfig()
-        if self.config.telemetry:
-            raise ValueError(
-                "telemetry=True needs obs/timeseries and obs/anomaly, which "
-                "are not ported yet: it waits for ROADMAP A7 "
-                "(observability adapters)")
         self.device = resolve_device(device)
         self.run_dir = run_dir
         os.makedirs(run_dir, exist_ok=True)
@@ -159,11 +158,24 @@ class ExpertIterationLoop:
             self._trace_sink = JsonlSink(os.path.join(run_dir,
                                                       "trace.jsonl"))
             configure_tracing(sink=self._trace_sink)
+        self._sampler = None
+        self._detector = None
+        if self.config.telemetry:
+            from ..obs import (AnomalyDetector, TelemetrySampler,
+                               TimeSeriesStore, set_live_store)
+
+            ts_store = TimeSeriesStore(run_dir)
+            self._detector = AnomalyDetector(sink=self.metrics,
+                                             store=ts_store)
+            self._sampler = TelemetrySampler(
+                ts_store, interval_s=self.config.telemetry_interval_s,
+                listeners=[self._detector.observe])
+            set_live_store(ts_store)
         self._stop = threading.Event()
         self._learner_done = threading.Event()
         self._gate_queue: queue.Queue = queue.Queue()
         self._rng = random.Random(self.config.seed)
-        self._lock = threading.Lock()
+        self._lock = make_lock("loop.service")
         self.restarts: dict[str, int] = {}
         self.fatal: dict[str, str] = {}
         self.gates_rejected = 0
@@ -383,6 +395,8 @@ class ExpertIterationLoop:
             args=("gatekeeper", self._gatekeeper_body),
             name="loop-gatekeeper", daemon=True))
         t0 = time.monotonic()
+        if self._sampler is not None:
+            self._sampler.start()
         for t in threads:
             t.start()
         try:
@@ -412,6 +426,11 @@ class ExpertIterationLoop:
             self._learner_done.set()
             for t in threads:
                 t.join(timeout=30)
+            if self._sampler is not None:
+                # one final sample after the threads are down: the
+                # close-time state rides in the history like obs_snapshot
+                self._sampler.stop(final_sample=True)
+                self._sampler.store.close()
             summary = self.summary()
             summary["seconds"] = round(time.monotonic() - t0, 3)
             if self._trace_sink is not None:
@@ -457,4 +476,6 @@ class ExpertIterationLoop:
             "fleet_reloads": fleet_stats["reloads"],
             "buffer": self.buffer.stats(),
             "fatal": dict(self.fatal),
+            **({"anomalies": self._detector.summary()}
+               if self._detector is not None else {}),
         }

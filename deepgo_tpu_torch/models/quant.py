@@ -48,6 +48,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from .. import BOARD_SIZE, NUM_POINTS, resolve_device
+from ..analysis.cudacheck import stage_d2h
 from ..ops import expand_planes_sym
 from ..ops.augment import _TARGET_MAP_NP, NUM_SYMMETRIES, table
 from . import policy_cnn
@@ -163,8 +164,9 @@ def make_quant_log_prob_fn(cfg: policy_cnn.ModelConfig, device="cuda"):
     @torch.inference_mode()
     def log_probs(qparams, packed, player, rank) -> np.ndarray:
         _check_kind(qparams, True)
-        return forward(qparams, packed, player, rank).cpu().numpy()
+        return stage_d2h(forward(qparams, packed, player, rank))
 
+    log_probs.device = device
     return log_probs
 
 
@@ -203,8 +205,9 @@ def make_fused_sym_policy_fn(cfg: policy_cnn.ModelConfig,
         # view k's distribution mapped back: orig point p sits at
         # tmap[k, p]; then the mixture average in log space
         back = torch.gather(logp, 2, tmap[:, None, :].expand_as(logp))
-        return (torch.logsumexp(back, dim=0) - log_s).cpu().numpy()
+        return stage_d2h(torch.logsumexp(back, dim=0) - log_s)
 
+    predict.device = device
     return predict
 
 

@@ -9,8 +9,10 @@ Numpy in, numpy out, like the JAX forwards, so the serving engine
 
 One forward is: host arrays -> device -> expansion (the CUDA kernel on the
 card, the plain version on the CPU) -> conv stack in ``cfg.compute_dtype``
--> float32 log-softmax -> host. ``.cpu()`` at the end is the forward's one
-synchronisation point.
+-> float32 log-softmax -> host. The copy back to the host
+(``cudacheck.stage_d2h``) is the forward's one synchronisation point. Each
+forward carries its ``device``; inputs already staged there as tensors
+pass straight through (the engine stages them under ``DEEPGO_XLACHECK=1``).
 """
 
 from __future__ import annotations
@@ -20,22 +22,26 @@ import torch
 import torch.nn.functional as F
 
 from .. import NUM_POINTS, resolve_device
+from ..analysis.cudacheck import stage_d2h
 from ..experiments import checkpoint as ckpt
 from ..ops import expand_planes, expand_planes_sym
 from ..ops.augment import _TARGET_MAP_NP, NUM_SYMMETRIES, table
 from . import convert, policy_cnn, value_cnn
 
 
+def _on(device: torch.device, value, dtype) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.from_numpy(np.ascontiguousarray(value, dtype=dtype)).to(
+        device)
+
+
 def inputs_on(device: torch.device, packed, player, rank
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Host arrays (packed (B, 9, 19, 19) uint8, player / rank (B,) int32)
-    -> contiguous tensors on ``device``."""
-    return (torch.from_numpy(
-                np.ascontiguousarray(packed, dtype=np.uint8)).to(device),
-            torch.from_numpy(
-                np.ascontiguousarray(player, dtype=np.int32)).to(device),
-            torch.from_numpy(
-                np.ascontiguousarray(rank, dtype=np.int32)).to(device))
+    """Host arrays (packed (B, 9, 19, 19) uint8, player / rank (B,) int32),
+    or tensors staged on ``device`` already, -> tensors on ``device``."""
+    return (_on(device, packed, np.uint8), _on(device, player, np.int32),
+            _on(device, rank, np.int32))
 
 
 def check_model(params, cfg) -> None:
@@ -67,8 +73,9 @@ def make_log_prob_fn(cfg: policy_cnn.ModelConfig, device="cuda"):
 
     @torch.inference_mode()
     def log_probs(params, packed, player, rank) -> np.ndarray:
-        return forward(params, packed, player, rank).cpu().numpy()
+        return stage_d2h(forward(params, packed, player, rank))
 
+    log_probs.device = device
     return log_probs
 
 
@@ -86,10 +93,11 @@ def make_policy_fn(cfg: policy_cnn.ModelConfig, top_k: int = 5,
     def predict(params, packed, player, rank) -> dict:
         logp = forward(params, packed, player, rank)
         top_probs, top_moves = torch.topk(logp.exp(), top_k, dim=-1)
-        return {"log_probs": logp.cpu().numpy(),
-                "top_moves": top_moves.to(torch.int32).cpu().numpy(),
-                "top_probs": top_probs.cpu().numpy()}
+        return {"log_probs": stage_d2h(logp),
+                "top_moves": stage_d2h(top_moves.to(torch.int32)),
+                "top_probs": stage_d2h(top_probs)}
 
+    predict.device = device
     return predict
 
 
@@ -119,8 +127,9 @@ def make_sym_policy_fn(cfg: policy_cnn.ModelConfig, device="cuda"):
         probs = probs.reshape(NUM_SYMMETRIES, b, NUM_POINTS)
         # map view k's distribution back: orig point p sits at tmap[k, p]
         back = torch.gather(probs, 2, tmap[:, None, :].expand_as(probs))
-        return torch.log(back.mean(dim=0) + 1e-30).cpu().numpy()
+        return stage_d2h(torch.log(back.mean(dim=0) + 1e-30))
 
+    predict.device = device
     return predict
 
 
@@ -138,8 +147,9 @@ def make_value_fn(cfg: value_cnn.ValueConfig, device="cuda"):
         check_model(params, cfg)
         planes = expand_planes(*inputs_on(device, packed, player, rank),
                                dtype=cfg.torch_dtype)
-        return torch.sigmoid(params(planes)).cpu().numpy()
+        return stage_d2h(torch.sigmoid(params(planes)))
 
+    win_prob.device = device
     return win_prob
 
 

@@ -1,14 +1,16 @@
 """Observability: the process-wide metrics registry, span tracing,
-request tracing, workload capture, the flight recorder and the rotating
-JSONL sink.
+request tracing, workload capture, the flight recorder, the rotating JSONL
+sink, and the analysis layer over them.
 
-The port's copies of the JAX package's ``obs`` modules that the serving
-stack reaches (``registry``, ``spans``, ``tracing``, ``workload``,
-``sentinel``, and ``JsonlSink`` of ``exporter``), with plain ``threading``
-locks. The HTTP exporter, the torch.profiler/NVTX bridge of spans and the
-lock-order checker are not ported yet.
+The port's copies of the JAX package's ``obs`` modules: ``registry``,
+``spans`` (bridged onto torch.profiler / NVTX ranges), ``tracing``,
+``workload``, ``sentinel``, ``exporter`` (``JsonlSink`` and the
+Prometheus text renderer), ``attribution`` (train wall-clock into named
+buckets), ``report`` (the offline run summary), ``slo`` (burn rates),
+``timeseries`` / ``anomaly`` / ``federate`` / ``dash`` (the telemetry
+plane), and ``costmodel`` (FLOP-counter pricing and MFU against the card's
+peak). The HTTP exporter is not ported yet.
 """
-
 from .registry import (Counter, Gauge, Histogram,  # noqa: F401
                        MetricsRegistry, get_registry)
 from .spans import (add_span_listener, attach_context,  # noqa: F401
@@ -18,7 +20,8 @@ from .tracing import (TraceContext, TraceRecorder,  # noqa: F401
                       configure_tracing, disable_tracing,
                       get_trace_recorder, start_request, trace_report,
                       tracing_enabled)
-from .exporter import JsonlSink, read_events, sink_files  # noqa: F401
+from .exporter import (JsonlSink, read_events,  # noqa: F401
+                       render_prometheus, sink_files)
 from .sentinel import (FlightRecorder, GateConfig,  # noqa: F401
                        configure_flight, evaluate_gate, flight_dump,
                        get_flight_recorder, install_signal_dump)
@@ -27,3 +30,19 @@ from .workload import (WorkloadCaptureError, WorkloadRecorder,  # noqa: F401
                        characterize, configure_workload, disable_workload,
                        exact_digest, format_workload, get_workload_recorder,
                        load_capture, note_request, workload_enabled)
+from .slo import (GaugeFloorObjective, HealthObjective,  # noqa: F401
+                  HistogramLatencyObjective, SLOConfig, SloTracker,
+                  parse_slo_spec)
+from .attribution import (attribute_run, attribute_snapshot,  # noqa: F401
+                          format_attribution)
+from .costmodel import (CostEntry, CostLedger, PlatformPeak,  # noqa: F401
+                        analytic_flops, analytic_train_flops, detect_peak,
+                        dispatch_seconds_by_bucket, evaluate_mfu_floor,
+                        format_ledger, get_cost_ledger, set_cost_ledger)
+from .timeseries import (TelemetrySampler, TimeSeriesStore,  # noqa: F401
+                         flatten_snapshot, get_live_store, load_samples,
+                         series_from_samples, set_live_store)
+from .anomaly import (DEFAULT_WATCHLIST, Anomaly,  # noqa: F401
+                      AnomalyDetector, WatchSpec)
+from .federate import (FederatedView, parse_prometheus,  # noqa: F401
+                       scrape_series, store_series, with_labels)

@@ -2,8 +2,9 @@
 
 The port's copy of ``JsonlSink`` and ``sink_files`` from
 ``deepgo_tpu/obs/exporter.py`` and of ``read_events`` from
-``deepgo_tpu/obs/report.py``, with a plain ``threading.Lock``. The HTTP
-exporter (``/metrics``, ``/healthz``) is not ported yet.
+``deepgo_tpu/obs/report.py``, and the Prometheus text renderer
+``render_prometheus`` that federation reads. The HTTP exporter
+(``/metrics``, ``/healthz``) is not ported yet.
 
 ``JsonlSink`` is an append-only JSONL event stream: idempotent close,
 context-manager support, thread-safe writes, and size-based rotation
@@ -16,8 +17,10 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
+
+from ..analysis.lockcheck import make_lock
+from .registry import Counter, Gauge, Histogram, MetricsRegistry
 
 
 class JsonlSink:
@@ -42,7 +45,7 @@ class JsonlSink:
         self.max_bytes = max_bytes
         self.max_files = max_files
         self._buffering = buffering
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"obs.sink.{os.path.basename(path)}")
         self._f = open(path, "a", buffering=buffering)
         self._size = self._f.tell()
 
@@ -135,3 +138,47 @@ def read_events(path: str) -> list[dict]:
         except OSError:
             continue
     return out
+
+
+# ---- Prometheus text rendering ----
+
+
+def _escape_label(value: object) -> str:
+    return (str(value).replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r'\"'))
+
+
+def _fmt_labels(key: tuple, extra: tuple = ()) -> str:
+    items = list(key) + list(extra)
+    if not items:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in items)
+    return "{" + inner + "}"
+
+
+def render_prometheus(registry: MetricsRegistry) -> str:
+    """The registry in Prometheus text exposition format 0.0.4."""
+    lines: list[str] = []
+    for m in registry.metrics():
+        if m.help:
+            lines.append(f"# HELP {m.name} {m.help}")
+        lines.append(f"# TYPE {m.name} {m.kind}")
+        if isinstance(m, Histogram):
+            for key, (counts, total, total_sum) in sorted(
+                    m.collect_raw().items()):
+                cum = 0
+                for edge, c in zip(m.buckets, counts):
+                    cum += c
+                    lines.append(
+                        f"{m.name}_bucket"
+                        f"{_fmt_labels(key, (('le', f'{edge:g}'),))} {cum}")
+                cum += counts[-1]
+                lines.append(
+                    f"{m.name}_bucket{_fmt_labels(key, (('le', '+Inf'),))} "
+                    f"{cum}")
+                lines.append(f"{m.name}_sum{_fmt_labels(key)} {total_sum:g}")
+                lines.append(f"{m.name}_count{_fmt_labels(key)} {total}")
+        elif isinstance(m, (Counter, Gauge)):
+            for key, value in sorted(m.collect().items()):
+                lines.append(f"{m.name}{_fmt_labels(key)} {value:g}")
+    return "\n".join(lines) + "\n"

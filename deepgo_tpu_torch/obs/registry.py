@@ -3,10 +3,9 @@
 The port's copy of ``deepgo_tpu/obs/registry.py``: monotonic counters,
 last-value gauges, and fixed-bucket histograms with percentile snapshots,
 snapshottable as one dict. ``tests/test_torch_variants.py`` holds its
-snapshots equal to the JAX package's after the same operations. One change:
-the JAX file takes its locks from the lock-order checker
-(``analysis.lockcheck.make_lock``), which is not ported yet; here every
-lock is a plain ``threading.Lock``.
+snapshots equal to the JAX package's after the same operations. Its locks
+come from the lock-order checker (``analysis.lockcheck.make_lock``) under
+the JAX package's names.
 
 Design rules, as in the JAX package:
 
@@ -30,8 +29,9 @@ from __future__ import annotations
 
 import bisect
 import re
-import threading
 import time
+
+from ..analysis.lockcheck import make_lock
 
 
 # seconds-scale latency ladder: sub-millisecond loader waits up to
@@ -60,7 +60,7 @@ class Metric:
             raise ValueError(f"invalid metric name {name!r}")
         self.name = name
         self.help = help
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"obs.metric.{name}")
         self._series: dict[tuple, object] = {}
 
     def labelnames(self) -> list[tuple]:
@@ -271,7 +271,7 @@ class MetricsRegistry:
 
     def __init__(self, clock=time.time):
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.registry")
         self._metrics: dict[str, Metric] = {}
 
     def _get_or_create(self, cls, name: str, help: str, **kw) -> Metric:

@@ -1,9 +1,8 @@
 """Regression sentinel: the noise-aware bench gate + the crash flight
 recorder.
 
-The port's copy of ``deepgo_tpu/obs/sentinel.py``, with plain
-``threading`` locks where the JAX package takes its locks from the
-lock-order checker (not ported). Two enforcement tools that turn passive
+The port's copy of ``deepgo_tpu/obs/sentinel.py``, its lock from the
+lock-order checker as in the JAX package. Two enforcement tools that turn passive
 observability into a gate and a black box:
 
   * **gate** — ``evaluate_gate`` compares a fresh bench result against a
@@ -37,11 +36,11 @@ import os
 import re
 import signal
 import sys
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass
 
+from ..analysis.lockcheck import make_lock
 from .registry import MetricsRegistry, get_registry
 from .spans import add_span_listener, remove_span_listener
 
@@ -152,7 +151,7 @@ class FlightRecorder:
         self.enabled = False
         self.dump_dir: str | None = None
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.flight")
         self._snapshots: deque = deque(maxlen=max_snapshots)
         self._spans: deque = deque(maxlen=max_spans)
         # extra dump sections: name -> zero-arg callable returning JSON-

@@ -1,8 +1,8 @@
 """Context-manager span tracing: named host regions with parent ids.
 
-The port's copy of ``deepgo_tpu/obs/spans.py`` without its
-``jax.profiler.TraceAnnotation`` bridge (a torch.profiler/NVTX bridge is
-left for later). A span is one named region of host work (a validation
+The port's copy of ``deepgo_tpu/obs/spans.py``, its profiler bridge on
+``torch.profiler`` and NVTX in place of ``jax.profiler.TraceAnnotation``.
+A span is one named region of host work (a validation
 pass, a checkpoint save, an elastic recovery) with an id, a parent id
 (nesting is tracked per-context via ``contextvars``, so concurrently running
 threads build independent trees), a status, and exception capture. Each
@@ -11,7 +11,11 @@ completed span is
   * streamed to the configured JSONL trace sink as an ``obs_span`` event;
   * folded into the process registry's ``deepgo_span_seconds`` histogram,
     keyed by span name, so p50/p99 per stage are live;
-  * handed to every span listener (the flight recorder's ring).
+  * handed to every span listener (the flight recorder's ring);
+  * bridged onto a ``torch.profiler.record_function`` range (and an NVTX
+    range where CUDA is available) while active, so when a profiler
+    capture is running (``utils.profiling.trace``) the same named region
+    appears on the host timeline over the kernels it launched.
 
 Spans deliberately do NOT wrap the per-step hot path: a JSONL line per
 training step would be measurable overhead. Spans are for the coarse
@@ -56,8 +60,8 @@ def remove_span_listener(fn) -> None:
 
 def set_trace_sink(sink) -> None:
     """Install the process-wide span sink (``None`` disables streaming).
-    The registry histogram stays active either way — spans are cheap
-    enough to always aggregate."""
+    The registry histogram and the profiler bridge stay active either
+    way — spans are cheap enough to always aggregate."""
     global _trace_sink
     _trace_sink = sink
 
@@ -115,6 +119,39 @@ def attach_context(parent_id: str | None):
         _current.reset(token)
 
 
+_nvtx: bool | None = None  # whether NVTX ranges can be opened (lazy)
+
+
+def _nvtx_works(torch) -> bool:
+    """Whether this build can push an NVTX range (the NVTX library is
+    optional in a CUDA build of PyTorch)."""
+    try:
+        torch.cuda.nvtx.range_push("deepgo")
+        torch.cuda.nvtx.range_pop()
+        return True
+    except (AttributeError, RuntimeError):
+        return False
+
+
+@contextlib.contextmanager
+def _profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range for ``name``, inside an
+    NVTX range where CUDA is available: a span's host region lines up with
+    the kernels it caused, in a torch.profiler trace and in an NVTX
+    timeline. Outside a capture the range costs one profiler-op call,
+    microseconds against the coarse regions spans mark."""
+    global _nvtx
+    import torch
+
+    if _nvtx is None:
+        _nvtx = torch.cuda.is_available() and _nvtx_works(torch)
+    with contextlib.ExitStack() as stack:
+        if _nvtx:
+            stack.enter_context(torch.cuda.nvtx.range(name))
+        stack.enter_context(torch.profiler.record_function(name))
+        yield
+
+
 class Span:
     """One open span; exposed so the body can attach fields mid-flight
     (``span.fields["step"] = n``) that land in the JSONL record."""
@@ -144,7 +181,8 @@ def span(name: str, registry=None, **fields):
     token = _current.set(s.span_id)
     status, error = "ok", None
     try:
-        yield s
+        with _profiler_range(name):
+            yield s
     except BaseException as e:
         status, error = "error", repr(e)
         raise

@@ -1,8 +1,7 @@
 """Request-scoped tracing: per-request timelines, tail exemplars, lineage.
 
-The port's copy of ``deepgo_tpu/obs/tracing.py`` (plain ``threading``
-locks; the offline readers take ``read_events`` from the port's
-``obs/exporter.py``). Aggregates (histograms, burn rates) say nothing of
+The port's copy of ``deepgo_tpu/obs/tracing.py`` (the offline readers
+take ``read_events`` from the port's ``obs/exporter.py``). Aggregates (histograms, burn rates) say nothing of
 one request: a p99 outlier, a failover hop, or a champion's provenance is
 invisible below the histogram. This module adds the per-request (and
 per-champion) anatomy:
@@ -46,12 +45,12 @@ provenance from the ``lineage_*`` stream.
 from __future__ import annotations
 
 import heapq
-import threading
 import time
 import uuid
 
 import numpy as np
 
+from ..analysis.lockcheck import make_lock
 from .registry import get_registry
 from .spans import capture_context
 
@@ -178,7 +177,7 @@ class TraceRecorder:
         self.window_s = window_s
         self.enabled = True
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.trace")
         self._ring: list[dict] = []
         self._ring_size = ring_size
         self._durations: list[float] = []   # rolling p99 window

@@ -1,8 +1,8 @@
 """Workload observatory: what the fleet is actually asked to serve.
 
 The port's copy of ``deepgo_tpu/obs/workload.py``: the same capture
-format, so a capture written by either package loads in the other. Locks
-are plain ``threading`` locks; the capture readers take ``read_events``
+format, so a capture written by either package loads in the other. The
+capture readers take ``read_events``
 and ``JsonlSink`` from the port's ``obs/exporter.py``. Metrics and traces
 observe the SYSTEM; this module observes the TRAFFIC: which positions
 arrive, how duplicated they are, and how bursty the arrival process is
@@ -48,6 +48,7 @@ import time
 
 import numpy as np
 
+from ..analysis.lockcheck import make_lock
 from ..utils import digest as _digest
 from .registry import get_registry
 
@@ -168,7 +169,7 @@ class WorkloadRecorder:
         self.store_positions = store_positions
         self.enabled = True
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.workload")
         self._seen: set[str] = set()        # exact digests already stored
         self._canonical: set[str] = set()
         # exact -> canonical memo: a duplicate request (the common case

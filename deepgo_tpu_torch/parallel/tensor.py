@@ -155,7 +155,12 @@ def shard_params(model: policy_cnn.PolicyCNN, mesh: Mesh
                  ) -> policy_cnn.PolicyCNN:
     """The network this rank holds: ``model`` itself when "model" has one
     rank, else a ``TensorParallelPolicyCNN`` with this rank's shards of
-    ``model``'s parameters, on ``model``'s device."""
+    ``model``'s parameters, on ``model``'s device.
+
+    With ``DEEPGO_XLACHECK=1`` the shards are verified leaf by leaf
+    against the declared map (``analysis/cudacheck.check_sharding``): a
+    "channel-sharded" leaf that is whole on this rank is a recorded
+    sharding-claim finding, as in the JAX package."""
     if mesh.shape["model"] == 1:
         return model
     device = next(model.parameters()).device
@@ -168,4 +173,10 @@ def shard_params(model: policy_cnn.PolicyCNN, mesh: Mesh
             dim = port_dim(name, specs[name], "model")
             p.copy_(local_slice(full[name], dim, index,
                                 mesh.shape["model"]))
+    from ..analysis import cudacheck
+    from .reshard import Placement
+
+    cudacheck.check_sharding(
+        "tensor.params", dict(tp.named_parameters()), specs,
+        Placement(mesh, mesh.shape["model"], False, param_shapes(model.cfg)))
     return tp

@@ -54,11 +54,21 @@ def _trees(state: dict) -> list[str]:
 
 def shard_opt_state(state: dict, placement) -> dict:
     """This data rank's chunk (a copy) of every per-parameter leaf of a
-    state whose leaves already have this rank's tensor-parallel shape."""
+    state whose leaves already have this rank's tensor-parallel shape.
+
+    Verified against the declared map when ``DEEPGO_XLACHECK=1``
+    (``analysis/cudacheck.check_sharding``): a ZeRO leaf that silently
+    stayed whole is a recorded sharding-claim finding."""
+    from ..analysis import cudacheck
+
     d, index = placement.mesh.shape["data"], placement.mesh.local_index("data")
-    return {k: ({n: local_slice(t, placement.data_dim(n), index, d).clone()
-                 for n, t in v.items()} if isinstance(v, dict) else v)
-            for k, v in state.items()}
+    out = {k: ({n: local_slice(t, placement.data_dim(n), index, d).clone()
+                for n, t in v.items()} if isinstance(v, dict) else v)
+           for k, v in state.items()}
+    for tree in _trees(out):
+        cudacheck.check_sharding("zero.opt_state", out[tree],
+                                 placement.opt_specs, placement)
+    return out
 
 
 def shard_optimizer(optimizer: Optimizer, placement) -> Optimizer:

@@ -1,8 +1,7 @@
 """Batched PUCT MCTS over the serving fleet: deep search as a service.
 
 The port's copy of ``deepgo_tpu/search/mcts.py`` over the port's
-``selfplay``, ``go.scoring``, ``obs`` and ``utils/digest``; the
-transposition table's lock is a plain ``threading.Lock``.
+``selfplay``, ``go.scoring``, ``obs`` and ``utils/digest``.
 
 The source paper frames the CNN as a move evaluator whose real strength
 appears when paired with search (arXiv:1412.6564 §Conclusion). This
@@ -51,13 +50,13 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-import threading
 import time
 import uuid
 from collections import OrderedDict
 
 import numpy as np
 
+from ..analysis.lockcheck import make_lock
 from .. import BOARD_SIZE
 from ..features import P_AGE, P_STONES
 from ..go.scoring import area_score
@@ -144,7 +143,7 @@ class TranspositionTable:
 
     def __init__(self, capacity: int = 100_000):
         self.capacity = int(capacity)
-        self._lock = threading.Lock()
+        self._lock = make_lock("search.tt")
         self._entries: OrderedDict[str, Node] = OrderedDict()
         self.lookups = 0
         self.hits = 0

@@ -1,7 +1,7 @@
 """Content-addressed position cache with request coalescing.
 
-The port's copy of ``deepgo_tpu/serving/cache.py`` (a plain
-``threading.Lock``; digests from the port's ``utils/digest.py``, so keys
+The port's copy of ``deepgo_tpu/serving/cache.py`` (digests from the
+port's ``utils/digest.py``, so keys
 and remapped rows are bitwise those of the JAX cache). The policy network
 is a pure function of (packed planes, player, rank), and opening-heavy
 traffic repeats positions, so a bounded LRU in front of
@@ -50,7 +50,6 @@ outside it.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -58,6 +57,7 @@ from typing import Iterable
 
 import numpy as np
 
+from ..analysis.lockcheck import make_lock
 from ..obs import get_registry
 from ..utils import digest as digest_mod
 
@@ -151,7 +151,7 @@ class PositionCache:
         self.name = name
         self._metrics = metrics
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"cache.{name}")
         self._entries: OrderedDict[str, _Entry] = OrderedDict()
         self._inflight: dict[str, _InFlight] = {}
         self._generation = 0

@@ -33,7 +33,11 @@ rows after the device-to-host copy) and ``serving_dispatch[.name]``
 (``utils/faults.py``); request tracing and workload capture
 (``obs/tracing.py``, ``obs/workload.py``); and the process registry's
 ``deepgo_serving_*`` metrics. There is no jit cache, so
-``compile_cache_size()`` is None.
+``compile_cache_size()`` is None. Under ``DEEPGO_XLACHECK=1`` the
+runtime sanitizer (``analysis/cudacheck.py``) counts the forward's
+signatures (zero new ones after warm-up), and each dispatch stages its
+batch onto the forward's ``device`` explicitly and runs the forward inside
+the transfer guard.
 
 The dispatcher launches on its own thread's current CUDA stream; the
 forward's ``.cpu()`` copy is the one synchronisation per dispatch.
@@ -51,6 +55,8 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from ..analysis import cudacheck
+from ..analysis.lockcheck import make_lock
 from .. import BOARD_SIZE
 from ..features import PACKED_CHANNELS
 from ..obs import get_registry
@@ -130,7 +136,12 @@ class InferenceEngine:
         self.config = config or EngineConfig()
         self.ladder = BucketLadder(self.config.buckets)
         self.name = name
-        self._forward = forward
+        # DEEPGO_XLACHECK=1 arms the signature sentinel and the transfer
+        # guard; off, the forward passes through untouched and a dispatch
+        # pays one attribute check
+        self._device = getattr(forward, "device", None)
+        self._forward = cudacheck.watch_compiles(forward, name=name)
+        self._xla_on = cudacheck.enabled()
         self._params = params
         self._metrics = metrics
         self._queue: queue.Queue[_Request] = queue.Queue(
@@ -138,7 +149,7 @@ class InferenceEngine:
         self._closing = threading.Event()   # no new submits
         self._cancel = threading.Event()    # fail pending instead of draining
         self._error: BaseException | None = None
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"engine.{name}")
         self._latencies: deque[float] = deque(
             maxlen=self.config.latency_window)
         # forward-only durations of recent successful dispatches: the
@@ -196,11 +207,22 @@ class InferenceEngine:
 
     # -- lifecycle ---------------------------------------------------------
 
-    def _run_forward(self, packed, player, rank) -> np.ndarray:
-        """One call of the forward on the current weights, counted."""
+    def _run_forward(self, packed, player, rank, guarded: bool = False
+                     ) -> np.ndarray:
+        """One call of the forward on the current weights, counted. A
+        ``guarded`` call (a live dispatch with the sanitizer armed) stages
+        the batch at the DECLARED host-to-device point and runs inside the
+        transfer guard, which proves the forward copies nothing else."""
         with self._lock:
             self._forwards += 1
             params = self._params
+        if guarded and self._xla_on:
+            inputs = cudacheck.stage_h2d(packed, player, rank,
+                                         device=self._device)
+            with cudacheck.transfer_guard(f"engine.{self.name}",
+                                          device=self._device,
+                                          inputs=inputs):
+                return np.asarray(self._forward(params, *inputs))
         return np.asarray(self._forward(params, packed, player, rank))
 
     def warmup(self) -> int:
@@ -228,6 +250,9 @@ class InferenceEngine:
                 if b == self.ladder.max_bucket:
                     self._window_secs.append(dt)
         self._warm_shapes = len(self.ladder.buckets)
+        # warm-up over: from here a new forward signature is a
+        # RecompileStorm finding when the sanitizer is armed
+        cudacheck.mark_warm(self._forward)
         return self._warm_shapes
 
     def compile_cache_size(self) -> int | None:
@@ -426,7 +451,7 @@ class InferenceEngine:
             # estimate, the fleet's outlier ejection) sees it as it would
             # see a really slow replica
             faults.maybe_slow("serving_slow", self.name)
-            out = self._run_forward(packed, players, ranks)
+            out = self._run_forward(packed, players, ranks, guarded=True)
             if faults.corrupt_due("serving_corrupt", self.name):
                 # silently WRONG rows, perturbed on the host after the
                 # device-to-host copy: a log-prob row comes back

@@ -113,6 +113,7 @@ from concurrent.futures import Future, InvalidStateError
 
 import numpy as np
 
+from ..analysis.lockcheck import make_lock
 from ..obs import get_registry
 from ..obs.sentinel import flight_dump
 from ..utils import faults
@@ -295,7 +296,7 @@ class FleetRouter:
         self._sleep = sleep
         # lint: allow[determinism] backoff jitter only — placement and results never depend on it; tests inject rng=
         self._rng = rng if rng is not None else random.Random()
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"fleet.{name}")
         self._closing = threading.Event()
         self._events: queue.Queue = queue.Queue()
         self._rr = 0                       # round-robin tie-break cursor
@@ -305,7 +306,7 @@ class FleetRouter:
         # applies before every swap, so the base tree — not a variant's
         # int8 pytree — is always the checkpoint-load template
         self._current_params = params      # updated by reload; respawns converge
-        self._reload_mutex = threading.Lock()
+        self._reload_mutex = make_lock(f"fleet.{name}.reload")
         self._failovers = 0
         self._respawns = 0
         self._reloads = 0

@@ -1,8 +1,7 @@
 """Resilience primitives for the serving path: typed shed/poison errors,
 a closed/open/half-open circuit breaker, and full-jitter restart backoff.
 
-The port's copy of ``deepgo_tpu/serving/resilience.py`` (a plain
-``threading.Lock`` in the breaker). Large fleets treat component failure as
+The port's copy of ``deepgo_tpu/serving/resilience.py``. Large fleets treat component failure as
 the steady state (FireCaffe, arXiv:1511.00175: failure frequency grows
 linearly with worker count), so the serving layer needs the same discipline
 as training. The pieces here are deliberately tiny, lock-protected state
@@ -28,9 +27,9 @@ that already catch the engine's typed failures keep working):
 
 from __future__ import annotations
 
-import threading
 import time
 
+from ..analysis.lockcheck import make_lock
 from .engine import EngineError
 
 
@@ -87,7 +86,7 @@ class CircuitBreaker:
         self.reset_timeout_s = reset_timeout_s
         self._clock = clock
         self._on_transition = on_transition
-        self._lock = threading.Lock()
+        self._lock = make_lock(name)
         self._state = "closed"
         self._consecutive = 0
         self._opened_at: float | None = None

@@ -72,6 +72,7 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from ..analysis.lockcheck import make_lock
 from ..obs import get_registry
 from ..obs.sentinel import flight_dump
 from .engine import (BatchDispatchError, EngineBusy, EngineClosed,
@@ -144,7 +145,7 @@ class SupervisedEngine:
         self._sleep = sleep
         # lint: allow[determinism] backoff jitter only — replay-bearing results never depend on it; tests inject rng=
         self._rng = rng if rng is not None else random.Random()
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"supervisor.{name}")
         self._breaker = CircuitBreaker(
             self.config.breaker_failures, self.config.breaker_reset_s,
             clock=clock, on_transition=self._on_breaker_transition,

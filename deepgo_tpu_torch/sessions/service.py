@@ -28,11 +28,11 @@ failure degrades to the plain argmax path rather than losing the move.
 from __future__ import annotations
 
 import random
-import threading
 import time
 
 import numpy as np
 
+from ..analysis.lockcheck import make_lock
 from ..go.board import SIZE
 from ..go.summarize import summarize
 from ..obs.registry import get_registry
@@ -91,7 +91,7 @@ class GameService:
                 simulations=search_sims, tier=tier, rank=int(rank),
                 deadline_s=self.budgets_s[-1])
             self._searcher = Search(fleet, cfg, metrics=metrics)
-        self._lock = threading.Lock()
+        self._lock = make_lock("sessions.service")
         self._opened = 0
         self.reply_retries = 0
         self.replies = 0

@@ -41,9 +41,9 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import threading
 import time
 
+from ..analysis.lockcheck import make_lock
 from ..obs.registry import get_registry
 from ..utils import faults
 from ..utils.atomicio import atomic_write
@@ -108,7 +108,7 @@ class SessionStore:
         os.makedirs(root, exist_ok=True)
         self.checkpoint_every = int(checkpoint_every)
         self.keep_checkpoints = int(keep_checkpoints)
-        self._lock = threading.Lock()
+        self._lock = make_lock("sessions.store")
         self.games: dict[str, GoGame] = {}
         self.corrupt: dict[str, str] = {}      # irrecoverable, by reason
         self.restored_from_checkpoint: list[str] = []

@@ -351,23 +351,38 @@ def test_warm_restart_keeps_weights_fresh_optimizer(data_root, tmp_path):
 @pytest.mark.parametrize("field,value,item", [
     ("data_parallel", 2, "mesh 2x1 needs 2 devices, have 1"),
     ("tensor_parallel", 2, "mesh 1x2 needs 2 devices, have 1"),
-    ("elastic", True, "mesh 2x1 needs 2 devices, have 1"),
-    ("profile", True, "A7")])
+    ("elastic", True, "mesh 2x1 needs 2 devices, have 1")])
 def test_what_one_card_cannot_honour_raises(data_root, tmp_path, field,
                                             value, item):
     """Without a process group one rank is all there is: a layout of more
     raises ConfigError naming it and the ranks there are. The elastic case
     is an elastic run at the JAX package's elastic-test layout
-    (data_parallel=2); ``profile`` waits for ROADMAP A7."""
+    (data_parallel=2)."""
     from deepgo_tpu_torch.parallel import ConfigError
 
     kw = {field: value}
     if field == "elastic":
         kw["data_parallel"] = 2
     exp = port_exp(data_root, tmp_path, **kw)
-    with pytest.raises(ValueError, match=item) as e:
+    with pytest.raises(ConfigError, match=item):
         exp.init()
-    assert isinstance(e.value, ConfigError) == (field != "profile")
+
+
+def test_profile_writes_a_chrome_trace_with_the_span_names(data_root,
+                                                           tmp_path):
+    """``profile=True`` captures the run into ``<run>/trace/trace.json``
+    (torch.profiler's Chrome trace): the spans' ranges sit in it by name,
+    and the metrics stream names the trace directory."""
+    exp = port_exp(data_root, tmp_path, profile=True, print_interval=5,
+                   validation_interval=5)
+    exp.run(10)
+    out = os.path.join(exp.run_path, "trace")
+    with open(os.path.join(out, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"validate", "checkpoint_save", "train.forward"} <= names
+    events = read_jsonl(os.path.join(exp.run_path, "metrics.jsonl"))
+    assert [e["out_dir"] for e in events if e["kind"] == "profile_trace"] \
+        == [os.path.abspath(out)]
 
 
 def test_config_round_trips_through_jax(data_root, tmp_path):

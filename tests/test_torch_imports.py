@@ -53,7 +53,15 @@ def test_port_sources_found():
                    ("parallel", "liveness.py"), ("parallel", "tensor.py"),
                    ("parallel", "zero.py"), ("parallel", "reshard.py"),
                    ("parallel", "shard_map_step.py"),
-                   ("parallel", "elastic.py")):
+                   ("parallel", "elastic.py"),
+                   ("analysis", "__init__.py"), ("analysis", "lockcheck.py"),
+                   ("analysis", "cudacheck.py"), ("utils", "profiling.py"),
+                   ("obs", "attribution.py"), ("obs", "report.py"),
+                   ("obs", "costmodel.py"), ("obs", "slo.py"),
+                   ("obs", "timeseries.py"), ("obs", "anomaly.py"),
+                   ("obs", "federate.py"), ("obs", "dash.py"),
+                   ("chaos", "__init__.py"), ("chaos", "scenario.py"),
+                   ("chaos", "canary.py"), ("chaos", "campaign.py")):
         assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 

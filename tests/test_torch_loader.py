@@ -34,6 +34,20 @@ from deepgo_tpu_torch.utils import atomicio, faults, gitinfo, metrics, retry
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_registry():
+    """The JAX package's calls in this file count into a metrics registry
+    of their own. Its process-wide one feeds the ``obs_snapshot`` of every
+    later JAX run in this worker, and tests/test_attribution.py holds its
+    run's train-step total to its own 30 steps."""
+    from deepgo_tpu.obs import registry as jax_registry
+
+    saved = jax_registry._default
+    jax_registry._default = jax_registry.MetricsRegistry()
+    yield
+    jax_registry._default = saved
+
 B = 8
 
 

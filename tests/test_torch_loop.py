@@ -57,6 +57,20 @@ from deepgo_tpu_torch.utils import faults  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_registry():
+    """The JAX package's calls in this file count into a metrics registry
+    of their own. Its process-wide one feeds the ``obs_snapshot`` of every
+    later JAX run in this worker, and tests/test_attribution.py holds its
+    run's train-step total to its own 30 steps."""
+    from deepgo_tpu.obs import registry as jax_registry
+
+    saved = jax_registry._default
+    jax_registry._default = jax_registry.MetricsRegistry()
+    yield
+    jax_registry._default = saved
+
 TINY = ExperimentConfig(name="loop-test", num_layers=2, channels=8,
                         batch_size=8, rate=0.05, seed=3)
 # the JAX learner and the port's, float32, from one seed checkpoint
@@ -728,10 +742,24 @@ class TestLoopTurn:
             loop.metrics.close()
 
 
-def test_telemetry_waits_for_the_observability_port(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        ExpertIterationLoop(str(tmp_path), LoopConfig(telemetry=True),
-                            TINY, device=CPU)
+def test_telemetry_runs_the_store_and_the_detector(tmp_path):
+    """``telemetry=True`` samples the registry into the run directory's
+    time-series store while the loop runs, streams the anomaly watchlist
+    over it, and the dash reads the store back."""
+    from deepgo_tpu_torch.obs.dash import collect_dash
+    from deepgo_tpu_torch.obs.timeseries import chunk_paths, load_samples
+
+    cfg = dataclasses.replace(TURN, telemetry=True,
+                              telemetry_interval_s=0.05)
+    summary = ExpertIterationLoop(str(tmp_path / "run"), cfg, TINY,
+                                  device=CPU).run()
+    assert summary["games_acked"] == summary["games_durable"] > 0
+    assert set(summary["anomalies"]) >= {"count", "by_kind"}
+    run_dir = str(tmp_path / "run")
+    assert chunk_paths(run_dir) and len(load_samples(run_dir)) >= 2
+    frame = collect_dash(run_dir)
+    assert frame["mode"] == "store" and frame["samples"] >= 2
+    assert frame["watchlist"], "the watchlist's series are empty"
 
 
 def test_entry_points_raise_without_cuda(tmp_path):

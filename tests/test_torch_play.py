@@ -58,6 +58,20 @@ from test_torch_policy import numpy_tree
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_registry():
+    """The JAX package's calls in this file count into a metrics registry
+    of their own. Its process-wide one feeds the ``obs_snapshot`` of every
+    later JAX run in this worker, and tests/test_attribution.py holds its
+    run's train-step total to its own 30 steps."""
+    from deepgo_tpu.obs import registry as jax_registry
+
+    saved = jax_registry._default
+    jax_registry._default = jax_registry.MetricsRegistry()
+    yield
+    jax_registry._default = saved
+
 SGF_DIR = os.path.join(REPO_ROOT, "data/sgf")
 CFG = policy_cnn.ModelConfig(num_layers=3, channels=16,
                              compute_dtype="float32")
