@@ -187,8 +187,33 @@ then, each phase failing the run on the first disagreement:
    10a's loop with ``telemetry=True``: its checks, and the dash's ``--json``
    frame over its store with the watchlist's series non-empty.
 
+13. the command line on the card: ``deepgo_tpu_torch.cli.main`` called in
+   this process, each sub-path with the launch counts zeroed just before
+   it and read just after. (a) ``train --iters 30`` on phase 7's split
+   (``full`` bf16, B = 256, SGD 0.005) with ``--obs-port`` while a thread
+   scrapes ``/metrics`` (``deepgo_train_steps_total`` rising) and
+   ``/healthz`` (200): launches = steps + eval batches; ``eval`` of its
+   checkpoint; ``train --auto-resume --iters 40``, which resumes at 30.
+   (b) ``serve --fleet 2 --variant f32,int8+sym`` of phase 5's grid net
+   with ``--obs-port`` scraped and ``--watch``: the grid net's checkpoint
+   published atomically at the watched path mid-run is hot-reloaded once
+   (``deepgo_fleet_reloads_total`` + 1), ``/healthz`` 200, the expansion
+   launches = the f32 replica's forwards and the sym launches = the
+   tolerance gate's forwards + the int8+sym replica's; the signal
+   handlers come back. (c) ``selfplay --model full --fleet 2 --games 8
+   --max-moves 60``: launches = engine forwards. (d) ``cost --model full
+   --json``: the ladder's FLOP count = ``analytic_flops``, the 989 TFLOP/s
+   table peak, one launch per priced entry. (e) ``lint`` over the
+   checkout: no finding. (f) ``loop --windows 1 --actors 1`` from phase
+   4's weights: acked = durable, launches = fleet + learner + gate
+   forwards. (g) ``graft_entry.entry()``: its planes bitwise the plain
+   expansion's, its bf16 log-probs within the bar of the card's float32
+   forward. (h) ``python3 -m deepgo_tpu_torch.cli localtest --device
+   cuda`` in a process of its own on the transcribed ``data/sgf``: exit
+   0 and its ``localtest done`` line.
+
 ``--phases LIST`` (e.g. ``--phases 11``) runs only the listed phases of
-4-12 (and the phases their nets come from); 1-3 always run.
+4-13 (and the phases their nets come from); 1-3 always run.
 ``--phases 11 --cards 4`` is phase 11 on four cards instead, one NCCL rank
 per card (it exits 1 without four cards): the layouts 4 x 1, 2 x 2 and
 both with ZeRO on the float32 config of (a) at a global B = 64, each held
@@ -216,6 +241,7 @@ import json
 import math
 import os
 import pstats
+import re
 import shutil
 import signal
 import socket
@@ -247,7 +273,7 @@ from deepgo_tpu_torch.models import convert, policy_cnn, quant, value_cnn
 from deepgo_tpu_torch.models.serving import (load_policy, load_value,
                                              make_log_prob_fn, make_value_fn)
 from deepgo_tpu_torch.obs import configure_flight
-from deepgo_tpu_torch.ops import _build, cuda_expand
+from deepgo_tpu_torch.ops import _build, cuda_expand, expand_planes
 from deepgo_tpu_torch.ops import expand as plain_expand
 from deepgo_tpu_torch.parallel import distributed, reshard
 from deepgo_tpu_torch.search import SearchConfig
@@ -266,6 +292,7 @@ from deepgo_tpu_torch.training import value as value_training
 from deepgo_tpu_torch.training import (make_train_step, make_train_step_many,
                                        sgd)
 from deepgo_tpu_torch.utils import digest, faults
+from deepgo_tpu_torch.utils.atomicio import atomic_write
 from deepgo_tpu_torch.utils.metrics import read_jsonl
 
 SEED = 0
@@ -662,7 +689,8 @@ def run_bursts(engine, packed, player, rank, tiers=None, on_submit=None):
                 errors.append(e)
 
         threads = [threading.Thread(target=submit,
-                                    args=(idx[k::THREADS],))
+                                    args=(idx[k::THREADS],),
+                                    name=f"chip-smoke-submit-{k}")
                    for k in range(THREADS)]
         for t in threads:
             t.start()
@@ -1684,7 +1712,8 @@ def phase_fleet_reload(model, cfg, tmp) -> dict:
     try:
         cuda_expand.reset_launches()
         fleet.warmup()
-        worker = threading.Thread(target=background)
+        worker = threading.Thread(target=background,
+                                  name="chip-smoke-reload-traffic")
         worker.start()
         for weights, source in ((model1, model1), (model, model),
                                 (model1, path)):
@@ -1984,6 +2013,7 @@ def phase_selfplay(model, cfg, tmp) -> dict:
     positions = 0
     for i, g in enumerate(games):
         path = os.path.join(tmp, f"game_{i:04d}.sgf")
+        # lint: allow[atomic-write] scratch SGF in the phase's temporary directory, read back at once
         with open(path, "w") as f:
             f.write(selfplay.to_sgf(g))
         got = transcribe_game(path)
@@ -2523,8 +2553,8 @@ def write_value_split(root: str) -> None:
             writer.add_game(f"{split}-{g:03d}", packed, meta)
             winners.append(np.full(GAME_POSITIONS, winner, np.int8))
         check(writer.finalize() == games * GAME_POSITIONS, f"{split} split")
-        np.save(os.path.join(root, split, "winner.npy"),
-                np.concatenate(winners))
+        with atomic_write(os.path.join(root, split, "winner.npy")) as f:
+            np.save(f, np.concatenate(winners))
 
 
 def value_step_card_vs_cpu(root: str) -> dict:
@@ -2643,7 +2673,8 @@ def play_sessions(service) -> list:
         except Exception as e:  # noqa: BLE001 - reported by the check
             errors.append(f"session {s}: {type(e).__name__}: {e}")
 
-    threads = [threading.Thread(target=session, args=(s,))
+    threads = [threading.Thread(target=session, args=(s,),
+                                name=f"chip-smoke-session-{s}")
                for s in range(SESSION_GAMES)]
     for t in threads:
         t.start()
@@ -3203,8 +3234,9 @@ def phase_four_cards() -> dict:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-par4-") as root:
         write_split(root)
         port = free_port()
+        # lint: allow[atomic-write] the ranks' scratch logs in a temporary directory, read back once they exit
         logs = [(open(os.path.join(root, f"rank{r}.out"), "w+"),
-                 open(os.path.join(root, f"rank{r}.err"), "w+"))
+                 open(os.path.join(root, f"rank{r}.err"), "w+"))  # lint: allow[atomic-write] the same scratch logs
                 for r in range(PAR_CARDS)]
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--par-rank",
@@ -3708,6 +3740,460 @@ def phase_observability() -> dict:
     return out
 
 
+# Phase 13, the command line on the card: the entry points a user types,
+# called in-process through ``cli.main`` (so that the launch counts can be
+# read), at ``full`` on the card.
+# one step a call, so that the scraped step counter moves 30 times
+CLI_TRAIN = {**TRAIN_RUN, "name": "chip-smoke-cli", "steps_per_call": 1}
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS = 30, 40
+CLI_SERVE_S = 8.0
+CLI_SELFPLAY = ("--model", "full", "--fleet", "2", "--games", "8",
+                "--max-moves", "60")
+CLI_LOOP = ("--windows", "1", "--actors", "1", "--fleet", "2",
+            "--games-per-round", "8", "--max-moves", "60",
+            "--window-steps", "20", "--min-positions", "512",
+            "--gate-games", "8", "--gate-threshold", "0.0",
+            "--stall-timeout", "300", "--seed", str(SEED))
+SCRAPE_INTERVAL_S = 0.01
+LOCALTEST_TIMEOUT_S = 300
+
+
+def cli_sets(config: dict) -> list:
+    """``--set`` pairs of an ExperimentConfig dict."""
+    return [f"{k}={str(v).lower() if isinstance(v, bool) else v}"
+            for k, v in config.items()]
+
+
+def run_cli(argv: list) -> str:
+    """``cli.main(argv)`` in this process; its standard output, echoed.
+    A ``SystemExit`` other than 0 fails the run."""
+    from deepgo_tpu_torch import cli
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+    except SystemExit as e:
+        check(e.code in (0, None), f"cli {argv[0]} exited {e.code}: "
+              f"{out.getvalue()[-2000:]}")
+    text = out.getvalue()
+    for line in text.splitlines()[-12:]:
+        print(f"  cli {argv[0]}| {line[:400]}", flush=True)
+    return text
+
+
+class Scraper:
+    """Polls an exporter's ``/metrics`` and ``/healthz`` on a thread while a
+    command runs: the samples of one metric and the health codes seen."""
+
+    def __init__(self, port: int, metric: str):
+        self.url = f"http://127.0.0.1:{port}"
+        self.metric = metric
+        self.values, self.codes = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="chip-smoke-scraper")
+
+    def _get(self, route: str) -> tuple:
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.url + route, timeout=5) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def _run(self) -> None:
+        from deepgo_tpu_torch.obs import parse_prometheus
+
+        while not self._stop.is_set():
+            try:
+                _, text = self._get("/metrics")
+                value = parse_prometheus(text).get(self.metric)
+                if value is not None:
+                    self.values.append(value)
+                self.codes.append(self._get("/healthz")[0])
+            except OSError:
+                pass  # not up yet, or already closed
+            self._stop.wait(SCRAPE_INTERVAL_S)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def counter_total(name: str, **labels) -> float:
+    """The process-wide registry's counter ``name`` summed over the series
+    whose labels include ``labels``."""
+    from deepgo_tpu_torch.obs import get_registry
+
+    total = 0.0
+    for key, value in get_registry().counter(name).collect().items():
+        if set(labels.items()) <= set(key):
+            total += value
+    return total
+
+
+def cli_train_path(root: str) -> dict:
+    """13a: ``train`` with ``--obs-port`` while a thread scrapes it, ``eval``
+    of its checkpoint, ``train --auto-resume`` of its run directory."""
+    sets = cli_sets({**CLI_TRAIN, "data_root": root,
+                     "run_dir": os.path.join(root, "runs")})
+    port = free_port()
+    steps0 = counter_total("deepgo_train_steps_total")
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    with Scraper(port, "deepgo_train_steps_total") as scrape:
+        text = run_cli(["train", "--iters", str(CLI_TRAIN_STEPS),
+                        "--obs-port", str(port), "--device", DEVICE,
+                        "--set", *sets])
+    train_s = time.perf_counter() - t0
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    path = re.search(r"checkpoint at (\S+)", text).group(1)
+    evals = math.ceil(CLI_TRAIN["validation_size"] / CLI_TRAIN["batch_size"])
+    check(launches == CLI_TRAIN_STEPS + evals and sym == 0,
+          f"cli train: expansion launches {launches} != {CLI_TRAIN_STEPS} "
+          f"steps + {evals} eval batches, or sym launches {sym}")
+    rising = [v - steps0 for v in scrape.values]
+    check(len(set(rising)) >= 2 and rising == sorted(rising)
+          and 0 < rising[-1] <= CLI_TRAIN_STEPS,
+          f"cli train: /metrics deepgo_train_steps_total rising, saw "
+          f"{rising}")
+    check(counter_total("deepgo_train_steps_total") - steps0
+          == CLI_TRAIN_STEPS, "cli train: the step counter counts the run")
+    check(scrape.codes and set(scrape.codes) == {200},
+          f"cli train: /healthz codes {sorted(set(scrape.codes))}")
+
+    cuda_expand.reset_launches()
+    text = run_cli(["eval", "--checkpoint", path, "--split", "validation",
+                    "--device", DEVICE])
+    eval_launches, eval_sym = cuda_expand.launches, cuda_expand.sym_launches
+    m = re.search(r"validation: cost=(\S+) accuracy=(\S+) n=(\d+)", text)
+    n = int(m.group(3))
+    check(math.isfinite(float(m.group(1))) and n > 0, f"cli eval: {text}")
+    check(eval_launches == math.ceil(n / CLI_TRAIN["batch_size"])
+          and eval_sym == 0, f"cli eval: expansion launches {eval_launches}"
+          f" for {n} positions at B = {CLI_TRAIN['batch_size']}")
+
+    cuda_expand.reset_launches()
+    text = run_cli(["train", "--iters", str(CLI_RESUME_STEPS),
+                    "--auto-resume", os.path.dirname(path), "--device",
+                    DEVICE, "--set", *sets])
+    resume_launches = cuda_expand.launches
+    check(f"at step {CLI_TRAIN_STEPS}" in text.splitlines()[0]
+          and text.startswith("auto-resumed"),
+          f"cli train --auto-resume resumes at {CLI_TRAIN_STEPS}: {text}")
+    final = re.search(r"checkpoint at (\S+)", text).group(1)
+    check(ckpt.load_meta(final)["step"] == CLI_RESUME_STEPS,
+          f"cli train --auto-resume ends at {CLI_RESUME_STEPS}")
+    check(resume_launches == CLI_RESUME_STEPS - CLI_TRAIN_STEPS
+          and cuda_expand.sym_launches == 0,
+          f"cli train --auto-resume: launches {resume_launches}")
+    return {"launches": {"cli_train": launches, "cli_eval": eval_launches,
+                         "cli_resume": resume_launches},
+            "train_s": train_s, "scraped_steps": rising,
+            "healthz_scrapes": len(scrape.codes),
+            "eval": {"cost": float(m.group(1)),
+                     "accuracy": float(m.group(2)), "n": n}}
+
+
+def cli_serve_path(grid, tmp: str) -> dict:
+    """13b: ``serve`` of the grid net as an f32 and an int8+sym replica,
+    with ``--obs-port`` scraped and a checkpoint published at ``--watch``
+    once the exporter answers."""
+    import deepgo_tpu_torch.serving as serving_mod
+
+    source = os.path.join(tmp, "grid.npz")
+    target = os.path.join(tmp, "champion.npz")
+    save_seed_checkpoint(grid, source)
+    port = free_port()
+    fleets = []
+    build = serving_mod.fleet_policy_engine
+
+    def capture(*args, **kwargs):
+        fleets.append(build(*args, **kwargs))
+        return fleets[-1]
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                 signal.SIGTERM)}
+    reloads0 = counter_total("deepgo_fleet_reloads_total",
+                             fleet="policy-fleet")
+    published = threading.Event()
+
+    def publish() -> None:
+        # the reload target: the grid net's checkpoint, written again
+        # under the watched name atomically once the daemon serves
+        while not scrape.codes and not published.is_set():
+            time.sleep(SCRAPE_INTERVAL_S)
+        shutil.copyfile(source, target + ".tmp")
+        os.replace(target + ".tmp", target)
+        published.set()
+
+    serving_mod.fleet_policy_engine = capture
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with Scraper(port, "deepgo_fleet_reloads_total") as scrape:
+            publisher = threading.Thread(target=publish, daemon=True,
+                                         name="chip-smoke-publish")
+            publisher.start()
+            text = run_cli(["serve", "--fleet", "2", "--variant",
+                            "f32,int8+sym", "--checkpoint", source,
+                            "--obs-port", str(port), "--watch", target,
+                            "--watch-interval", "0.5", "--duration",
+                            str(CLI_SERVE_S), "--device", DEVICE])
+            published.set()
+            publisher.join(timeout=30)
+    finally:
+        serving_mod.fleet_policy_engine = build
+    serve_s = time.perf_counter() - t0
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    check({s: signal.getsignal(s) for s in handlers} == handlers,
+          "cli serve: SIGINT and SIGTERM handlers restored")
+    check(len(fleets) == 1, "cli serve built one fleet")
+    fleet = fleets[0]
+    check([r.engine.variant for r in fleet._replicas] == ["f32", "int8+sym"],
+          "cli serve: replica variants f32, int8+sym")
+    forwards = replica_forwards(fleet.stats())
+    gate = sum(2 * math.ceil(quant.ToleranceConfig().boards / b)
+               for b in fleet.ladder.buckets)
+    check(f"hot-reloaded {target}" in text and "1 reloads" in text,
+          f"cli serve: one hot reload of {target}")
+    check(counter_total("deepgo_fleet_reloads_total", fleet="policy-fleet")
+          - reloads0 == 1, "cli serve: deepgo_fleet_reloads_total += 1")
+    check(scrape.codes and set(scrape.codes) == {200},
+          f"cli serve: /healthz codes {sorted(set(scrape.codes))}")
+    check(launches == forwards[0] and sym == gate + forwards[1]
+          and min(forwards) >= len(fleet.ladder.buckets),
+          f"cli serve: expansion launches {launches} != the f32 replica's "
+          f"forwards {forwards[0]}, or sym launches {sym} != the gate's "
+          f"{gate} + the int8+sym replica's {forwards[1]}")
+    return {"launches": {"cli_serve": launches},
+            "sym_launches": {"cli_serve_gate": sym - forwards[1],
+                             "cli_serve_int8_sym": forwards[1]},
+            "replica_forwards": forwards, "serve_s": serve_s,
+            "healthz_scrapes": len(scrape.codes),
+            "reload_line": next(line for line in text.splitlines()
+                                if "hot-reloaded" in line)}
+
+
+def cli_selfplay_path(tmp: str) -> dict:
+    """13c: ``selfplay`` through a two-replica fleet, forwarded to the
+    port's selfplay command line."""
+    out_dir = os.path.join(tmp, "selfplay")
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    with ForwardCount.counting() as count:
+        text = run_cli(["selfplay", *CLI_SELFPLAY, "--sgf-out", out_dir,
+                        "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    forwards = count.n
+    games = sorted(f for f in os.listdir(out_dir) if f.endswith(".sgf"))
+    check(len(games) == 8, f"cli selfplay: {len(games)} SGFs")
+    for name in games:
+        check(transcribe_game(os.path.join(out_dir, name)) is not None,
+              f"cli selfplay: {name} transcribes")
+    check(launches == forwards > 0 and sym == 0,
+          f"cli selfplay: expansion launches {launches} != engine forwards "
+          f"{forwards}, or sym launches {sym}")
+    return {"launches": {"cli_selfplay": launches}, "forwards": forwards,
+            "seconds": seconds, "stats": text.splitlines()[0][:400]}
+
+
+def cli_cost_path() -> dict:
+    """13d: ``cost --model full --json``: every entry priced once on the
+    card, the ladder's FLOP count equal to the analytic one, the card's
+    table peak."""
+    from deepgo_tpu_torch.obs import costmodel
+
+    cfg = policy_cnn.CONFIGS["full"]
+    memo = len(costmodel._train_memo)
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    block = json.loads(run_cli(["cost", "--model", "full", "--json",
+                                "--device", DEVICE]))
+    seconds = time.perf_counter() - t0
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    entries, peak = block["entries"], block["peak"]
+    ladder = BucketLadder().buckets
+    check(all(entries[f"policy_forward/b{b}"]["flops"]
+              == costmodel.analytic_flops(cfg, b) for b in ladder),
+          "cli cost: the ladder's FLOP count == analytic_flops")
+    check(all(e["source"] == "flop_counter" for e in entries.values()),
+          "cli cost: every row from the FLOP counter")
+    check(peak["flops_per_s"] == 989e12 and peak["source"] == "table",
+          f"cli cost: peak {peak}")
+    trained = len(costmodel._train_memo) - memo  # 0 when memoized earlier
+    want_expand = 2 * len(ladder) + trained + 1  # f32 + int8 ladders, steps
+    check(launches == want_expand and sym == 3,
+          f"cli cost: expansion launches {launches} != {want_expand} "
+          f"priced entries, or sym launches {sym} != 3 ensembles")
+    return {"launches": {"cli_cost": launches},
+            "sym_launches": {"cli_cost": sym}, "seconds": seconds,
+            "entries": {k: {"flops": e["flops"], "hbm_peak": e["hbm_peak"]}
+                        for k, e in entries.items()}, "peak": peak}
+
+
+def cli_lint_path() -> dict:
+    """13e: ``lint`` over the checkout: exit 0, no finding."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    text = run_cli(["lint", "--root", root])
+    check("lint: 0 finding(s), 0 warning(s)" in text, f"cli lint: {text}")
+    return {"seconds": time.perf_counter() - t0,
+            "report": text.strip().splitlines()[-1]}
+
+
+def cli_loop_path(model, tmp: str) -> dict:
+    """13f: ``loop --windows 1 --actors 1`` on ``full`` from phase 4's
+    weights: every acked game durable."""
+    seed = os.path.join(tmp, "loop-seed.npz")
+    save_seed_checkpoint(model, seed)
+    GateDirectAgent.forwards = 0
+    loop_gatekeeper.PolicyAgent = GateDirectAgent
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with ForwardCount.counting() as count:
+            text = run_cli(["loop", "--run-dir", os.path.join(tmp, "loop"),
+                            "--checkpoint", seed, *CLI_LOOP, "--device",
+                            DEVICE, "--set", *cli_sets(LOOP_LEARNER)])
+    finally:
+        loop_gatekeeper.PolicyAgent = agents.PolicyAgent
+    seconds = time.perf_counter() - t0
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    summary = json.loads(text.strip().splitlines()[-1])
+    by_path = {"cli_loop_fleet": count.n,
+               "cli_loop_learner": summary["learner_step"],
+               "cli_loop_gate_direct": GateDirectAgent.forwards}
+    check(summary["windows_trained"] == 1 and summary["fatal"] == {},
+          f"cli loop: {summary['windows_trained']} windows, fatal "
+          f"{summary['fatal']}")
+    check(summary["games_acked"] == summary["games_durable"] > 0,
+          f"cli loop: acked {summary['games_acked']} != durable "
+          f"{summary['games_durable']}")
+    check(launches == sum(by_path.values()) and sym == 0
+          and min(by_path.values()) > 0,
+          f"cli loop: expansion launches {launches} != {by_path}, or sym "
+          f"launches {sym}")
+    return {"launches": by_path, "seconds": seconds,
+            "games_acked": summary["games_acked"],
+            "games_durable": summary["games_durable"]}
+
+
+def cli_entry_path() -> dict:
+    """13g: ``graft_entry.entry()`` on the card: its planes bitwise the
+    plain expansion's, its bf16 log-probs within the bar of the card's
+    float32 forward of the same weights, more boards drawn until 32 rows
+    clear the margin gate."""
+    from deepgo_tpu_torch import graft_entry
+
+    cuda_expand.reset_launches()
+    fn, args = graft_entry.entry(DEVICE)
+    model, packed, player, rank = args
+    with torch.no_grad():
+        got = fn(*args)
+        calls = 1
+        check(tuple(got.shape) == (graft_entry.ENTRY_BATCH, 361)
+              and got.device.type == DEVICE
+              and bool(torch.isfinite(got).all()), "entry: finite rows")
+        f32 = cpu_copy(model, dataclasses.replace(
+            model.cfg, compute_dtype="float32")).to(DEVICE)
+        rng = np.random.default_rng(SEED + 13)
+        gots, refs = [got], []
+        boards = [(packed, player, rank)]
+        while True:
+            x, y, z = boards[-1]
+            refs.append(policy_cnn.log_policy(f32, plain_expand.expand_planes(
+                x, y, z, dtype=torch.float32)))
+            ref = torch.cat(refs).cpu().numpy()
+            top2 = np.sort(ref, axis=1)[:, -2:]
+            decided = top2[:, 1] - top2[:, 0] >= 0.05
+            if decided.sum() >= 32:
+                break
+            more = tuple(torch.from_numpy(a).to(DEVICE)
+                         for a in random_records(rng, graft_entry.ENTRY_BATCH))
+            boards.append(more)
+            gots.append(fn(model, *more))
+            calls += 1
+        launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+        mine = torch.cat(gots).cpu().numpy()
+        # after the counts were read: the comparison is no launch of the path
+        check(torch.equal(expand_planes(packed, player, rank),
+                          plain_expand.expand_planes(packed, player, rank)),
+              "entry: the kernel's planes bitwise the plain expansion's")
+    check(launches == calls and sym == 0, f"entry: expansion launches "
+          f"{launches} != {calls} calls of its forward, or sym {sym}")
+    drift = float(np.abs(mine - ref)[np.exp(ref) >= 1e-3].max())
+    top1 = bool(np.array_equal(mine.argmax(1)[decided],
+                               ref.argmax(1)[decided]))
+    check(drift <= 0.5 and top1, f"entry: bf16 drift {drift} or top-1 "
+          f"on {int(decided.sum())} decided rows against the card's f32")
+    return {"launches": {"entry": launches}, "drift": drift,
+            "decided_rows": int(decided.sum()), "boards": len(mine)}
+
+
+def cli_localtest_path() -> dict:
+    """13h: ``python3 -m deepgo_tpu_torch.cli localtest --device cuda`` as
+    a user runs it, in a process of its own, on the bundled data/sgf
+    splits transcribed into a temporary directory."""
+    from deepgo_tpu_torch.data.transcribe import transcribe_split
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-localtest-") as tmp:
+        for split in ("validation", "test"):
+            transcribe_split(os.path.join(SGF_DIR, split),
+                             os.path.join(tmp, split), workers=1,
+                             verbose=False)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deepgo_tpu_torch.cli", "localtest",
+             "--device", DEVICE, "--set", f"data_root={tmp}",
+             f"run_dir={os.path.join(tmp, 'runs')}",
+             "train_split=validation", "validation_split=test",
+             "test_split=test"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=LOCALTEST_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+        else ""
+    check(proc.returncode == 0 and last.startswith("localtest done"),
+          f"cli localtest exited {proc.returncode}: {last} "
+          f"{proc.stderr[-2000:]}")
+    return {"seconds": seconds, "last_line": last}
+
+
+def phase_command_line(model, grid) -> dict:
+    """Phase 13: the command line on the card, each sub-path with the
+    launch counts zeroed just before it and read just after."""
+    t0 = time.perf_counter()
+    out, t = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        root = os.path.join(tmp, "data")
+        write_split(root)
+        for key, fn in (("train", lambda: cli_train_path(root)),
+                        ("serve", lambda: cli_serve_path(grid, tmp)),
+                        ("selfplay", lambda: cli_selfplay_path(tmp)),
+                        ("cost", cli_cost_path), ("lint", cli_lint_path),
+                        ("loop", lambda: cli_loop_path(model, tmp)),
+                        ("entry", cli_entry_path),
+                        ("localtest", cli_localtest_path)):
+            s = time.perf_counter()
+            out[key] = fn()
+            t[key] = time.perf_counter() - s
+            print(f"cli {key}: " + json.dumps(out[key], default=str)[:3000],
+                  flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["sub_seconds"] = t
+    print(f"phase 13: {out['seconds']:.2f} s " + json.dumps(t), flush=True)
+    return out
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -3727,8 +4213,9 @@ def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
 def parse_phases(argv: list) -> tuple[set, int]:
     """``--phases 4,11`` (default: all) and ``--cards N`` (default 1).
     Phases 1-3 always run; a phase that needs an earlier one's net brings
-    it along (5-10 need phase 4's, 6, 8 and 9 phase 5's too)."""
-    phases, cards = set(range(4, 13)), 1
+    it along (5-10 and 13 need phase 4's, 6, 8, 9 and 13 phase 5's
+    too)."""
+    phases, cards = set(range(4, 14)), 1
     args = list(argv)
     while args:
         flag = args.pop(0)
@@ -3739,14 +4226,14 @@ def parse_phases(argv: list) -> tuple[set, int]:
         else:
             raise SystemExit(f"chip_smoke: unknown argument {flag!r}; use "
                              "--phases LIST and --cards N")
-    if not phases <= set(range(1, 13)):
-        raise SystemExit(f"chip_smoke: phases run from 1 to 12: {phases}")
+    if not phases <= set(range(1, 14)):
+        raise SystemExit(f"chip_smoke: phases run from 1 to 13: {phases}")
     if cards not in (1, PAR_CARDS) or (cards > 1 and phases != {11}):
         raise SystemExit(f"chip_smoke: --cards {PAR_CARDS} goes with "
                          "--phases 11 alone")
-    if phases & {6, 8, 9}:
+    if phases & {6, 8, 9, 13}:
         phases.add(5)
-    if phases & {5, 6, 8, 9, 10}:
+    if phases & {5, 6, 8, 9, 10, 13}:
         phases.add(4)
     return phases, cards
 
@@ -3870,6 +4357,13 @@ def main() -> int:
         if 7 in phases:
             sps = {"phase_7": train["run"]["samples_per_sec"], **sps}
         print("training samples/s: " + json.dumps(sps), flush=True)
+    if 13 in phases:
+        cmd = phase_command_line(path["model"], var["model"])
+        for sub in cmd.values():
+            if isinstance(sub, dict):
+                expand_paths |= sub.get("launches", {})
+                sym_paths |= sub.get("sym_launches", {})
+        summary["command_line_path"] = cmd
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512

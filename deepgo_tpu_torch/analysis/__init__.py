@@ -1,4 +1,4 @@
-"""Machine-checked invariants at run time.
+"""Machine-checked invariants: the linter, and sanitizers at run time.
 
 The port's counterpart of ``deepgo_tpu/analysis``:
 
@@ -12,10 +12,13 @@ The port's counterpart of ``deepgo_tpu/analysis``:
     signature sentinel (zero post-warm-up new forward signatures), the
     implicit-transfer guard over ``torch.cuda.set_sync_debug_mode``, and
     the sharding-claim checker over ``parallel/reshard.check_placement``.
+  * :mod:`linter` / :mod:`grammar` — the AST invariant linter behind
+    ``cli lint``, with the port's policy in :mod:`config`: per-rule
+    checkers with file:line findings, a reasoned inline-pragma allowlist,
+    and JSON for CI. They load on demand from the CLI and tests.
 
-The invariant linter (``analysis/{linter,grammar,config}.py``) is not
-ported yet. Both modules stay import-light: they sit on production
-construction paths.
+Only :mod:`lockcheck` and :mod:`cudacheck` are imported eagerly: they sit
+on production construction paths and stay import-light.
 """
 
 from . import cudacheck  # noqa: F401

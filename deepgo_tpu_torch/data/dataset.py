@@ -170,8 +170,7 @@ class DatasetWriter:
     def __init__(self, out_dir: str):
         os.makedirs(out_dir, exist_ok=True)
         self.out_dir = out_dir
-        # streamed .tmp + fsync + os.replace in finalize() is the atomic
-        # pattern for a file larger than one buffer
+        # lint: allow[atomic-write] streamed .tmp + fsync + os.replace in finalize() is the atomic pattern, sized beyond one buffer
         self._planes_f = open(os.path.join(out_dir, "planes.bin.tmp"), "wb")
         self._meta: list[np.ndarray] = []
         self._games: list[dict] = []

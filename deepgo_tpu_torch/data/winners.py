@@ -25,6 +25,7 @@ import os
 import numpy as np
 
 from .. import sgf
+from ..utils.atomicio import atomic_write
 
 
 def winner_of(result: str) -> int:
@@ -54,7 +55,8 @@ def build(processed: str, sgf_dir: str) -> dict:
             winner[g["start"]:g["start"] + g["count"]] = w
         else:
             stats["undecided"] += 1
-    np.save(os.path.join(processed, "winner.npy"), winner)
+    with atomic_write(os.path.join(processed, "winner.npy")) as f:
+        np.save(f, winner)
     stats["winner_positions"] = int(
         (winner == np.load(os.path.join(processed, "meta.npy"))[:, 0]).sum())
     return stats

@@ -381,8 +381,8 @@ class Experiment:
             # device fence
             t0 = time.monotonic()
             for losses in pending:
-                values = losses.reshape(-1).cpu().numpy()
-                for value in values.tolist():
+                # lint: allow[hot-sync] window-boundary fetch is the declared materialization point (one copy back per window)
+                for value in losses.reshape(-1).cpu().numpy().tolist():
                     ewma = value if ewma is None else 0.95 * ewma + 0.05 * value
                     last_loss = value
             if pending:
@@ -404,6 +404,7 @@ class Experiment:
 
         def dump_bad(batch):
             # the failing (super)batch, kept for offline debugging
+            # lint: allow[hot-sync] crash-path postmortem dump: the step already failed, there is no pipeline left to stall
             bad = {k_: v.cpu().numpy() for k_, v in batch.items()}
             with atomic_write(
                     os.path.join(self.run_path, "bad_batch.npz")) as f:

@@ -62,6 +62,7 @@ def _build(target: Path) -> bool:
     if cxx is None:
         return False
     BUILD_DIR.mkdir(exist_ok=True)
+    # lint: allow[atomic-write] an empty lock file for flock, never read: nothing durable to tear
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if target.exists():

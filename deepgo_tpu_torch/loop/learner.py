@@ -291,6 +291,7 @@ class ContinuousLearner:
         # the window's one read back: the same floats folded in the same
         # order as a per-step read, so the checkpointed EWMA and the
         # bit-exact resume are unchanged
+        # lint: allow[hot-sync] declared materialization point: one fetch per window, not one per step
         for last_loss in torch.stack(losses).cpu().numpy().tolist():
             ewma = (last_loss if ewma is None
                     else 0.95 * ewma + 0.05 * last_loss)

@@ -4,12 +4,13 @@ sink, and the analysis layer over them.
 
 The port's copies of the JAX package's ``obs`` modules: ``registry``,
 ``spans`` (bridged onto torch.profiler / NVTX ranges), ``tracing``,
-``workload``, ``sentinel``, ``exporter`` (``JsonlSink`` and the
-Prometheus text renderer), ``attribution`` (train wall-clock into named
+``workload``, ``sentinel``, ``exporter`` (``JsonlSink``, the
+Prometheus text renderer and the live ``/metrics`` + ``/healthz`` HTTP
+endpoint ``ObsExporter``), ``attribution`` (train wall-clock into named
 buckets), ``report`` (the offline run summary), ``slo`` (burn rates),
 ``timeseries`` / ``anomaly`` / ``federate`` / ``dash`` (the telemetry
 plane), and ``costmodel`` (FLOP-counter pricing and MFU against the card's
-peak). The HTTP exporter is not ported yet.
+peak).
 """
 from .registry import (Counter, Gauge, Histogram,  # noqa: F401
                        MetricsRegistry, get_registry)
@@ -20,8 +21,9 @@ from .tracing import (TraceContext, TraceRecorder,  # noqa: F401
                       configure_tracing, disable_tracing,
                       get_trace_recorder, start_request, trace_report,
                       tracing_enabled)
-from .exporter import (JsonlSink, read_events,  # noqa: F401
-                       render_prometheus, sink_files)
+from .exporter import (JsonlSink, ObsExporter,  # noqa: F401
+                       health_from_engine, health_from_ledger, read_events,
+                       render_prometheus, sink_files, start_exporter)
 from .sentinel import (FlightRecorder, GateConfig,  # noqa: F401
                        configure_flight, evaluate_gate, flight_dump,
                        get_flight_recorder, install_signal_dump)
@@ -38,7 +40,8 @@ from .attribution import (attribute_run, attribute_snapshot,  # noqa: F401
 from .costmodel import (CostEntry, CostLedger, PlatformPeak,  # noqa: F401
                         analytic_flops, analytic_train_flops, detect_peak,
                         dispatch_seconds_by_bucket, evaluate_mfu_floor,
-                        format_ledger, get_cost_ledger, set_cost_ledger)
+                        format_ledger, get_cost_ledger, set_cost_ledger,
+                        standard_ledger)
 from .timeseries import (TelemetrySampler, TimeSeriesStore,  # noqa: F401
                          flatten_snapshot, get_live_store, load_samples,
                          series_from_samples, set_live_store)

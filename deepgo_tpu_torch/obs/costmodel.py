@@ -556,6 +556,20 @@ def variant_entries(ledger: CostLedger, cfg, variant: str, buckets=None,
     return out
 
 
+def sym_entry(ledger: CostLedger, cfg, bucket: int = 8) -> CostEntry:
+    """The unfused 8-fold dihedral ensemble forward
+    (``make_sym_policy_fn``: one 8B-board forward, probabilities averaged),
+    the reference the fused serving forward is tested against."""
+    from ..models.serving import make_sym_policy_fn
+
+    fn = make_sym_policy_fn(cfg, ledger.device)
+    packed, ints = _boards(bucket)
+    return ledger.measure(
+        "sym_policy_forward", fn,
+        (_model(cfg, ledger.device), packed, ints, ints),
+        bucket=bucket, analytic=8.0 * analytic_flops(cfg, bucket))
+
+
 def _train_batch(batch: int, device, wire: str, augment: bool) -> dict:
     packed, ints = _boards(batch, wire)
     out = {"packed": torch.from_numpy(packed).to(device),
@@ -611,6 +625,30 @@ def eval_entry(ledger: CostLedger, cfg, batch: int, wire: str = "packed",
         fn_name, step, (_model(cfg, ledger.device),
                         _train_batch(batch, ledger.device, wire, False)),
         bucket=batch, analytic=analytic_flops(cfg, batch))
+
+
+def standard_ledger(model: str = "full", buckets=None,
+                    train_batch: int = 256, sym_bucket: int = 8,
+                    device="cuda") -> CostLedger:
+    """The ``cli cost`` sweep over one named model config, in one ledger:
+    the serving ladder (f32 and int8), the sym ensembles (unfused, fused
+    f32 and fused int8) and the train and eval steps. Each entry runs once
+    on ``device`` (the FLOP counter prices what executes). ``train_batch=0``
+    skips the train and eval steps, ``sym_bucket=0`` the ensembles."""
+    from ..models import policy_cnn
+
+    cfg = policy_cnn.CONFIGS[model]
+    ledger = CostLedger(device=device)
+    ladder_entries(ledger, cfg, buckets=buckets)
+    variant_entries(ledger, cfg, "int8", buckets=buckets)
+    if sym_bucket:
+        sym_entry(ledger, cfg, bucket=sym_bucket)
+        for variant in ("sym", "int8+sym"):
+            variant_entries(ledger, cfg, variant, buckets=(sym_bucket,))
+    if train_batch:
+        train_entry(ledger, cfg, train_batch)
+        eval_entry(ledger, cfg, train_batch)
+    return ledger
 
 
 # ---------------------------------------------------------------------------

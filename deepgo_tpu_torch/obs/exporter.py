@@ -1,10 +1,16 @@
-"""The rotating JSONL sink and its reader.
+"""The rotating JSONL sink, its reader, and the live HTTP endpoint.
 
-The port's copy of ``JsonlSink`` and ``sink_files`` from
-``deepgo_tpu/obs/exporter.py`` and of ``read_events`` from
-``deepgo_tpu/obs/report.py``, and the Prometheus text renderer
-``render_prometheus`` that federation reads. The HTTP exporter
-(``/metrics``, ``/healthz``) is not ported yet.
+The port's copy of ``deepgo_tpu/obs/exporter.py`` (and of ``read_events``
+from ``deepgo_tpu/obs/report.py``): ``JsonlSink`` and ``sink_files``, the
+Prometheus text renderer ``render_prometheus`` that federation reads, and
+``ObsExporter`` — a daemon-thread HTTP server (stdlib ``http.server``):
+``/metrics`` renders the registry in Prometheus text format, ``/healthz``
+composes registered health callables into one JSON verdict (HTTP 200 when
+every component is healthy, 503 the moment one is not), ``/trace`` the
+live tail-exemplar ring, ``/cost`` the cost ledger and ``/series`` the
+recent window of the live time-series store (``?metric=NAME`` for aligned
+(t, value) points). Port 0 binds an ephemeral port; ``exporter.port``
+reports the real one. ``close()`` is idempotent.
 
 ``JsonlSink`` is an append-only JSONL event stream: idempotent close,
 context-manager support, thread-safe writes, and size-based rotation
@@ -17,10 +23,12 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..analysis.lockcheck import make_lock
-from .registry import Counter, Gauge, Histogram, MetricsRegistry
+from .registry import Counter, Gauge, Histogram, MetricsRegistry, get_registry
 
 
 class JsonlSink:
@@ -182,3 +190,197 @@ def render_prometheus(registry: MetricsRegistry) -> str:
             for key, value in sorted(m.collect().items()):
                 lines.append(f"{m.name}{_fmt_labels(key)} {value:g}")
     return "\n".join(lines) + "\n"
+
+
+# ---- the live endpoint ----
+
+
+def health_from_engine(engine):
+    """Health callable over a SupervisedEngine (or anything exposing
+    ``health()`` with a ``state`` field): healthy while serving."""
+
+    def check() -> dict:
+        h = engine.health()
+        return {"healthy": h.get("state") == "serving", **h}
+
+    return check
+
+
+def health_from_ledger(ledger, expected):
+    """Health callable over a HeartbeatLedger: healthy while no expected
+    peer's silence exceeds the miss budget. ``expected`` is a callable
+    returning the peer ids to watch (the surviving set shrinks as the
+    elastic loop recovers, so it must be read live, not captured)."""
+
+    def check() -> dict:
+        from ..parallel.liveness import HostLost
+
+        try:
+            ledger.check_liveness(expected())
+        except HostLost as e:
+            return {"healthy": False, "error": str(e),
+                    "lost_process_id": e.process_id,
+                    "silent_for_s": round(e.silent_for_s, 3),
+                    "budget_s": e.budget_s}
+        snap = ledger.snapshot()
+        return {"healthy": True, "budget_s": snap["budget_s"],
+                "hosts": {str(k): v for k, v in snap["hosts"].items()}}
+
+    return check
+
+
+class _Handler(BaseHTTPRequestHandler):
+    def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
+        exporter: ObsExporter = self.server.exporter  # type: ignore[attr-defined]
+        path = self.path.split("?", 1)[0]
+        if path == "/metrics":
+            body = render_prometheus(exporter.registry).encode()
+            self._reply(200, body, "text/plain; version=0.0.4")
+        elif path == "/healthz":
+            payload, healthy = exporter.check_health()
+            self._json(200 if healthy else 503, payload)
+        elif path == "/trace":
+            # the live tail-exemplar view: the request-tracing ring and
+            # its accounting, while the process serves (obs/tracing.py)
+            from .tracing import get_trace_recorder
+
+            rec = get_trace_recorder()
+            payload = {"enabled": rec is not None}
+            if rec is not None:
+                payload["stats"] = rec.stats()
+                payload["exemplars"] = rec.exemplars()
+            self._json(200, payload)
+        elif path == "/cost":
+            # the cost ledger (obs/costmodel.py) as installed by cli cost
+            # or the train loop
+            from .costmodel import get_cost_ledger
+
+            ledger = get_cost_ledger()
+            payload = {"enabled": ledger is not None}
+            if ledger is not None:
+                payload["ledger"] = ledger.to_dict()
+            self._json(200, payload)
+        elif path == "/series":
+            # the recent telemetry window from the live time-series store
+            # (obs/timeseries.py): ?metric=NAME[&n=POINTS] returns aligned
+            # (t, value) points per matching series key; without
+            # ?metric=, the known keys. Served from the store's in-memory
+            # tail: a scrape never touches the chunk files.
+            from urllib.parse import parse_qs
+
+            from .timeseries import get_live_store
+
+            qs = parse_qs(self.path.partition("?")[2])
+            store = get_live_store()
+            payload = {"enabled": store is not None}
+            if store is not None:
+                metric = qs.get("metric", [None])[0]
+                try:
+                    n = max(1, int(qs.get("n", ["240"])[0]))
+                except ValueError:
+                    n = 240
+                if metric:
+                    payload["metric"] = metric
+                    payload["series"] = store.recent_series(metric, n)
+                else:
+                    payload["keys"] = sorted(
+                        {k for rec in store.recent_window(n)
+                         for k in (rec.get("values") or {})})
+            self._json(200, payload)
+        else:
+            self._reply(404, b"not found\n", "text/plain")
+
+    def _json(self, code: int, payload: dict) -> None:
+        body = (json.dumps(payload, default=str) + "\n").encode()
+        self._reply(code, body, "application/json")
+
+    def _reply(self, code: int, body: bytes, ctype: str) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args) -> None:
+        pass  # scrapes are high-frequency; stderr is for failures
+
+
+class ObsExporter:
+    """Daemon-thread HTTP endpoint over one registry + health callables."""
+
+    def __init__(self, port: int = 0, host: str = "127.0.0.1",
+                 registry: MetricsRegistry | None = None):
+        self.registry = registry or get_registry()
+        self._health_fns: dict[str, object] = {}
+        self._lock = make_lock("obs.exporter")
+        self._server = ThreadingHTTPServer((host, port), _Handler)
+        self._server.daemon_threads = True
+        self._server.exporter = self  # type: ignore[attr-defined]
+        self.host, self.port = self._server.server_address[:2]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name="obs-exporter",
+            daemon=True)
+        self._thread.start()
+        self._closed = False
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def add_health(self, name: str, fn) -> None:
+        """Register one component check: ``fn() -> dict`` with a boolean
+        ``healthy`` key (missing reads as healthy). Re-registering a name
+        replaces the check."""
+        with self._lock:
+            self._health_fns[name] = fn
+
+    def remove_health(self, name: str) -> None:
+        with self._lock:
+            self._health_fns.pop(name, None)
+
+    def check_health(self) -> tuple[dict, bool]:
+        """(payload, overall): overall is the AND over components; a
+        raising check reads as unhealthy with the error in the payload."""
+        with self._lock:
+            fns = dict(self._health_fns)
+        components = {}
+        healthy = True
+        degraded = False
+        for name, fn in sorted(fns.items()):
+            try:
+                detail = dict(fn())
+            except Exception as e:  # noqa: BLE001 — reported, not raised
+                detail = {"healthy": False, "error": repr(e)}
+            ok = bool(detail.get("healthy", True))
+            detail["healthy"] = ok
+            healthy = healthy and ok
+            # degraded (an SLO burning, a breaker half-open) is an
+            # operator signal, not a 503: load balancers keep the replica
+            degraded = degraded or bool(detail.get("degraded"))
+            components[name] = detail
+        return ({"healthy": healthy, "degraded": degraded,
+                 "time": time.time(), "components": components}, healthy)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def start_exporter(port: int, host: str = "127.0.0.1",
+                   registry: MetricsRegistry | None = None) -> ObsExporter:
+    """The CLI's ``--obs-port`` paths: start an exporter and print the
+    bound URL once, so an operator watching stdout knows where to curl."""
+    exporter = ObsExporter(port=port, host=host, registry=registry)
+    print(f"obs: serving /metrics and /healthz at {exporter.url}",
+          flush=True)
+    return exporter

@@ -596,5 +596,6 @@ def trace_report(run_dir: str, ident: str) -> str:
                      "prefix)")
     if not events["requests"] and not events["lineage"]:
         lines.append("(no trace_request or lineage events found — was "
-                     "tracing armed? obs/tracing.configure_tracing)")
+                     "tracing armed? obs/tracing.configure_tracing or "
+                     "`cli loop --trace`)")
     return "\n".join(lines)

@@ -32,9 +32,10 @@ only through the shared run directory (heartbeats and checkpoints): a live
 same loop applies per host, with the relaunch re-entering through the
 deadline-wrapped bootstrap (``deadlines.initialize_with_deadline``).
 
-The live ``/metrics`` + ``/healthz`` endpoint (``ElasticConfig.obs_port``)
-needs the HTTP exporter, which is not ported yet (ROADMAP A8): setting it
-raises.
+``ElasticConfig.obs_port`` serves live ``/metrics`` + ``/healthz`` for the
+host: the health verdict composes the heartbeat ledger, so a peer's
+silence flips ``/healthz`` to 503 within this host's miss budget, and it
+stays 503 until the recovery has resumed from the converged checkpoint.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ import sys
 import time
 from dataclasses import dataclass
 
-from ..obs import configure_flight, flight_dump, get_registry
+from ..obs import (configure_flight, flight_dump, get_registry,
+                   health_from_ledger, start_exporter)
 from ..utils.metrics import MetricsWriter
 from .deadlines import guard_first_call, initialize_with_deadline
 from .distributed import hybrid_mesh, per_host_batch, world_size
@@ -78,9 +80,10 @@ class ElasticConfig:
     coordinator: str | None = None
     num_processes: int | None = None
     heartbeat_dir: str = ""        # default: <run_dir>/heartbeats
-    # live observability endpoint: /metrics + /healthz on this port (None
-    # = no exporter). The port has no HTTP exporter yet (ROADMAP A8), so
-    # anything but None raises.
+    # live observability endpoint: /metrics + /healthz on this port (0 =
+    # ephemeral, None = no exporter). The health verdict composes the
+    # heartbeat ledger, so a peer kill flips /healthz to 503 within this
+    # host's own miss budget.
     obs_port: int | None = None
 
 
@@ -138,10 +141,6 @@ def run_elastic(run_dir: str, total_iters: int, *, overrides: dict | None = None
         raise ConfigError(
             f"process_id {ecfg.process_id} outside expected_hosts "
             f"{ecfg.expected_hosts}")
-    if ecfg.obs_port is not None:
-        raise ValueError(
-            "ElasticConfig.obs_port needs the HTTP exporter, which waits "
-            "for ROADMAP A8 (the CLI and exporter)")
 
     # bootstrap: deadline-wrapped, retried, typed (a no-op single-process,
     # but the dist_init fault site and the watchdog cover it either way)
@@ -174,6 +173,26 @@ def run_elastic(run_dir: str, total_iters: int, *, overrides: dict | None = None
     obs_alive = reg.gauge(
         "deepgo_elastic_hosts_alive", "surviving host count")
     obs_alive.set(len(survivors))
+    exporter = None
+    # /healthz state shared with the recovery loop: the ledger check alone
+    # would flip back to healthy the instant the loop drops the lost host
+    # from ``survivors``; the latch keeps it 503 from detection until the
+    # recovery record is finalized (resumed from the converged checkpoint)
+    recovering = {"active": False, "lost": None}
+    if ecfg.obs_port is not None:
+        exporter = start_exporter(ecfg.obs_port)
+        ledger_check = health_from_ledger(
+            ledger, lambda: survivors - {ecfg.process_id})
+
+        def fleet_health() -> dict:
+            out = ledger_check()
+            if recovering["active"]:
+                out["healthy"] = False
+                out["recovering"] = True
+                out["lost_process_id"] = recovering["lost"]
+            return out
+
+        exporter.add_health("heartbeats", fleet_health)
     recoveries: list[dict] = []
     pending_loss: dict | None = None
     # parallelism-layout override for the converge step, set by the
@@ -217,6 +236,7 @@ def run_elastic(run_dir: str, total_iters: int, *, overrides: dict | None = None
                 metrics.write("recovery", **rec)
                 print("ELASTIC_RECOVERY " + json.dumps(rec), flush=True)
                 pending_loss = None
+                recovering["active"] = False
             remaining = total_iters - exp.step
             if remaining <= 0:
                 log(f"elastic host {ecfg.process_id}: step {exp.step} already "
@@ -275,6 +295,8 @@ def run_elastic(run_dir: str, total_iters: int, *, overrides: dict | None = None
                         f"({ecfg.max_recoveries}) exhausted; surfacing {e}")
                     raise
                 survivors.discard(e.process_id)
+                recovering["active"] = True
+                recovering["lost"] = e.process_id
                 if not survivors:
                     raise  # cannot happen for a live host; defensive
                 log(f"elastic host {ecfg.process_id}: {e}; converging on the "
@@ -339,6 +361,8 @@ def run_elastic(run_dir: str, total_iters: int, *, overrides: dict | None = None
         print("ELASTIC_DONE " + json.dumps(summary), flush=True)
         return summary
     finally:
+        if exporter is not None:
+            exporter.close()
         # per-host close-time registry snapshot: the cross-host join in
         # obs/attribution.py keys on these (the shared metrics.jsonl's
         # snapshots interleave between hosts; this stream is ours alone)

@@ -254,12 +254,6 @@ def test_elastic_config_validation_is_typed(tmp_path):
                     device="cpu")
 
 
-def test_obs_port_waits_for_the_exporter(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        run_elastic(str(tmp_path), 5, ecfg=ElasticConfig(obs_port=0),
-                    device="cpu")
-
-
 # ---- elastic runs ----
 
 
@@ -371,6 +365,80 @@ def test_recovery_converges_on_checkpoint_bit_exact(data_root, tmp_path):
     for a, b in zip(p_l + o_l, p_c + o_c):
         np.testing.assert_array_equal(a, b)
     assert meta_l["ewma"] == meta_c["ewma"]
+
+
+def test_obs_port_healthz_flips_on_peer_silence_and_recovers(
+        data_root, tmp_path, monkeypatch):
+    """An elastic host's ``/healthz`` (``ElasticConfig.obs_port``) on a fake
+    clock: 200 while host 1's silence is inside the 3 s miss budget, 503
+    the moment it passes it (and through the recovery), 200 again once
+    the host has resumed from the converged checkpoint without host 1."""
+    import urllib.error
+    import urllib.request
+
+    run_dir = str(tmp_path / "run")
+    now = {"t": 1000.0}
+
+    def clock():
+        return now["t"]
+
+    HeartbeatWriter(os.path.join(run_dir, "heartbeats"), 1,
+                    clock=clock).beat(0)
+    exporters, seen = [], []
+    real_start = elastic.start_exporter
+
+    def start(port):
+        exporters.append(real_start(port))
+        return exporters[-1]
+
+    def healthz():
+        url = exporters[0].url + "/healthz"
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    class ScrapingWriter(HeartbeatWriter):
+        """Host 0's writer: scrape /healthz after every beat; at the
+        first window move the clock to just inside, then just past, host
+        1's budget."""
+
+        def beat(self, step, step_latency_s=None):
+            out = super().beat(step, step_latency_s)
+            if step == 5 and not any(s[0] == "inside" for s in seen):
+                now["t"] = 1000.0 + 2.9
+                seen.append(("inside", step, *healthz()))
+                now["t"] = 1000.0 + 3.1
+                seen.append(("past", step, *healthz()))
+            else:
+                seen.append(("beat", step, *healthz()))
+            return out
+
+    def log(msg):
+        if "converging" in msg:
+            seen.append(("detected", None, *healthz()))
+
+    monkeypatch.setattr(elastic, "start_exporter", start)
+    monkeypatch.setattr(elastic, "HeartbeatWriter", ScrapingWriter)
+    summary = run_elastic(
+        run_dir, 10, overrides=tiny_overrides(data_root),
+        ecfg=ElasticConfig(process_id=0, expected_hosts=2,
+                           heartbeat_interval_s=1.0, miss_budget=3,
+                           obs_port=0),
+        clock=clock, log=log, device="cpu")
+    assert summary["recoveries"] == 1 and summary["final_step"] == 10
+    assert [(what, step, code) for what, step, code, _ in seen[:6]] == [
+        ("beat", 0, 200), ("inside", 5, 200), ("past", 5, 503),
+        ("detected", None, 503), ("beat", 5, 200), ("beat", 10, 200)]
+    past = seen[2][3]["components"]["heartbeats"]
+    assert past["lost_process_id"] == 1 and past["budget_s"] == 3.0
+    assert past["silent_for_s"] == pytest.approx(3.1)
+    detected = seen[3][3]["components"]["heartbeats"]
+    assert detected["recovering"] is True
+    assert detected["lost_process_id"] == 1
+    assert all(code == 200 for _, _, code, _ in seen[4:])
+    assert exporters[0]._closed  # closed when run_elastic returns
 
 
 def test_recovery_budget_exhaustion_surfaces_host_lost(data_root, tmp_path):

@@ -61,7 +61,11 @@ def test_port_sources_found():
                    ("obs", "timeseries.py"), ("obs", "anomaly.py"),
                    ("obs", "federate.py"), ("obs", "dash.py"),
                    ("chaos", "__init__.py"), ("chaos", "scenario.py"),
-                   ("chaos", "canary.py"), ("chaos", "campaign.py")):
+                   ("chaos", "canary.py"), ("chaos", "campaign.py"),
+                   ("cli.py",), ("graft_entry.py",),
+                   ("analysis", "config.py"), ("analysis", "grammar.py"),
+                   ("analysis", "linter.py"), ("experiments", "plot.py"),
+                   ("experiments", "repeated.py"), ("obs", "exporter.py")):
         assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 
