@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, game, loop and parallel paths on CUDA cards and check them.
+"""Drive the PyTorch port's serving, training, game, loop, parallel and tool paths on CUDA cards and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit:
@@ -212,8 +212,33 @@ then, each phase failing the run on the first disagreement:
    cuda`` in a process of its own on the transcribed ``data/sgf``: exit
    0 and its ``localtest done`` line.
 
+14. the tools on the card (``deepgo_tpu_torch/tools``), each through its
+   ``main(argv)`` as a user types it, at ``full`` (12 x 128, bf16), each
+   sub-path with the launch counts zeroed just before it and read just
+   after; only depth is cut (positions, steps, games). (a) ``make_corpus``
+   with the scripted pool (20k positions asked, chunk 256, 200 moves, 8
+   opening plies), transcribed: three non-empty splits, games = SGF files,
+   positions/s of generation and of transcription. (b) ``accuracy_curve``
+   at budgets 4,000 and the whole train split, 300 steps at B = 256:
+   launches = steps + evaluation batches (+ one per train step the cost
+   ledger prices for the first time), the final EWMA at most 0.7 of the
+   first window's, and the trained net's test top-1 at least the untrained
+   net's (the same seed at step 0) + 0.05. (c) ``symmetry_eval`` of (b)'s
+   largest-budget checkpoint at B = 512 on the test split and on 16,384
+   train positions: sym launches = batches + 1 (the warm-up), expansion
+   launches likewise for the plain mode; the same checkpoint in float32
+   on the CPU agrees on plain test top-1 within 0.01; ``top1_delta`` and
+   ``cost_ratio`` recorded. (d) ``make_selfplay_corpus`` of that net
+   against ``oneply`` and itself (128 games, chunk 64, 4 opening plies,
+   200 moves), transcribed: launches = policy forwards. (e) ``debug_twoply`` of that
+   net, 4 games: launches = forwards, its stats line. (f) ``feed_bench``
+   at the JAX base config (B = 512, K = 20, 4 loader threads, prefetch 8)
+   with 100 steps a run and a window of 20: each streamed run's launches
+   = its steps (+ pricing). (g) the port's walkthrough notebook cells
+   (``make_notebook.cells("cuda")``) executed in order in one namespace.
+
 ``--phases LIST`` (e.g. ``--phases 11``) runs only the listed phases of
-4-13 (and the phases their nets come from); 1-3 always run.
+4-14 (and the phases their nets come from); 1-3 always run.
 ``--phases 11 --cards 4`` is phase 11 on four cards instead, one NCCL rank
 per card (it exits 1 without four cards): the layouts 4 x 1, 2 x 2 and
 both with ZeRO on the float32 config of (a) at a global B = 64, each held
@@ -232,6 +257,7 @@ true, "device": {...}}``. Without CUDA it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import cProfile
@@ -3764,22 +3790,27 @@ def cli_sets(config: dict) -> list:
             for k, v in config.items()]
 
 
-def run_cli(argv: list) -> str:
-    """``cli.main(argv)`` in this process; its standard output, echoed.
-    A ``SystemExit`` other than 0 fails the run."""
-    from deepgo_tpu_torch import cli
-
+def run_main(main, argv: list, label: str) -> str:
+    """``main(argv)`` in this process; its standard output, echoed. A
+    ``SystemExit`` other than 0 fails the run."""
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
-            cli.main(argv)
+            main(argv)
     except SystemExit as e:
-        check(e.code in (0, None), f"cli {argv[0]} exited {e.code}: "
+        check(e.code in (0, None), f"{label} exited {e.code}: "
               f"{out.getvalue()[-2000:]}")
     text = out.getvalue()
     for line in text.splitlines()[-12:]:
-        print(f"  cli {argv[0]}| {line[:400]}", flush=True)
+        print(f"  {label}| {line[:400]}", flush=True)
     return text
+
+
+def run_cli(argv: list) -> str:
+    """``cli.main(argv)`` in this process; its standard output, echoed."""
+    from deepgo_tpu_torch import cli
+
+    return run_main(cli.main, argv, f"cli {argv[0]}")
 
 
 class Scraper:
@@ -4194,6 +4225,358 @@ def phase_command_line(model, grid) -> dict:
     return out
 
 
+# Phase 14, the tools on the card: each module of deepgo_tpu_torch/tools
+# through its ``main(argv)`` as a user types it, at ``full`` on the card.
+# Only depth is cut: positions, steps and games.
+TOOLS_CORPUS = ("--positions", "20000", "--chunk", "256", "--max-moves",
+                "200", "--opening-plies", "8")
+TOOLS_NET = ("num_layers=12", "channels=128", "batch_size=256")
+TOOLS_ITERS = 300
+TOOLS_SMALL_BUDGET = 4000
+TOOLS_LOSS_RATIO = 0.7    # final EWMA over the first window's, at most
+TOOLS_TOP1_GAIN = 0.05    # trained test top-1 over the untrained net's
+TOOLS_SYM_BATCH = 512
+TOOLS_SYM_LIMIT = 16384   # train positions swept for boards/s
+TOOLS_CPU_TOP1_TOL = 0.01  # the card's bf16 vs the CPU's float32 top-1
+TOOLS_SELFPLAY = ("--games", "128", "--chunk", "64", "--opening-plies", "4",
+                  "--max-moves", "200")
+TOOLS_TWOPLY_GAMES = 4
+TOOLS_FEED_ITERS, TOOLS_FEED_WINDOW = 100, 20
+TOOLS_SPLITS = ("train", "validation", "test")
+
+
+def tool_lines(text: str, key: str) -> list:
+    """The JSON objects among a tool's output lines that carry ``key``."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{\""):
+            record = json.loads(line)
+            if key in record:
+                out.append(record)
+    return out
+
+
+def printed_dict(text: str, first_key: str) -> dict:
+    """The ``print(dict)`` line of a tool's output whose first key is
+    ``first_key``."""
+    prefix = "{" + repr(first_key) + ":"
+    return ast.literal_eval(next(line for line in text.splitlines()
+                                 if line.startswith(prefix)))
+
+
+def split_sizes(root: str) -> dict:
+    return {s: len(GoDataset(root, s)) for s in TOOLS_SPLITS}
+
+
+@contextlib.contextmanager
+def counted_policy_forwards():
+    """Counts the forwards of every policy agent built inside the block:
+    ``agents.PolicyAgent`` makes its forward with
+    ``models.serving.make_policy_fn`` when it is built."""
+    from deepgo_tpu_torch.models import serving as serving_mod
+
+    make = serving_mod.make_policy_fn
+    count = [0]
+
+    def counting(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def predict(*a):
+            count[0] += 1
+            return fn(*a)
+
+        predict.device = fn.device
+        return predict
+
+    serving_mod.make_policy_fn = counting
+    try:
+        yield count
+    finally:
+        serving_mod.make_policy_fn = make
+
+
+def priced_steps() -> int:
+    """Train steps the cost ledger has priced in this process: an
+    Experiment prices its step (one launch) the first time it meets it."""
+    from deepgo_tpu_torch.obs import costmodel
+
+    return len(costmodel._train_memo)
+
+
+def tools_corpus_path(tmp: str) -> dict:
+    """14a: ``make_corpus`` with the scripted pool, transcribed."""
+    from deepgo_tpu_torch.tools import make_corpus
+
+    out = os.path.join(tmp, "corpus")
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    text = run_main(make_corpus.main, ["--out", out, *TOOLS_CORPUS,
+                                       "--seed", str(SEED), "--device",
+                                       DEVICE], "make_corpus")
+    seconds = time.perf_counter() - t0
+    totals = printed_dict(text, "games")
+    sgfs = sum(len(os.listdir(os.path.join(out, "sgf", s)))
+               for s in TOOLS_SPLITS)
+    check(sgfs == totals["games"] > 0, f"make_corpus: {sgfs} SGF files for "
+          f"{totals['games']} games")
+    sizes = split_sizes(os.path.join(out, "processed"))
+    check(all(sizes.values()), f"make_corpus: an empty split {sizes}")
+    check(cuda_expand.launches == cuda_expand.sym_launches == 0,
+          "make_corpus: the scripted pool launches no kernel")
+    transcribe_s = seconds - totals["gen_seconds"]
+    return {"totals": totals, "examples": sizes,
+            "gen_positions_per_sec": totals["positions"]
+            / totals["gen_seconds"],
+            "transcribe_positions_per_sec": sum(sizes.values())
+            / transcribe_s, "transcribe_s": transcribe_s, "seconds": seconds}
+
+
+def tools_curve_path(tmp: str, processed: str) -> dict:
+    """14b: ``accuracy_curve`` at two budgets on ``full``, beside the
+    untrained net's test top-1."""
+    from deepgo_tpu_torch.cli import parse_overrides
+    from deepgo_tpu_torch.tools import accuracy_curve
+
+    sizes = split_sizes(processed)
+    runs = os.path.join(tmp, "runs")
+    sets = [*TOOLS_NET, f"validation_interval={TOOLS_ITERS}",
+            f"run_dir={runs}"]
+    cfg = ExperimentConfig(data_root=processed, scheme="uniform").replace(
+        **parse_overrides(sets))
+    priced = priced_steps()
+    cuda_expand.reset_launches()
+    text = run_main(accuracy_curve.main, [
+        "--data-root", processed, "--budgets",
+        f"{TOOLS_SMALL_BUDGET},{sizes['train']}", "--iters",
+        str(TOOLS_ITERS), "--out", os.path.join(tmp, "curve.jsonl"),
+        "--device", DEVICE, "--set", *sets], "accuracy_curve")
+    launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+    priced = priced_steps() - priced
+    points = tool_lines(text, "budget")
+    check(len(points) == 2, f"accuracy_curve: {len(points)} points")
+    evals = math.ceil(min(cfg.validation_size, sizes["validation"])
+                      / cfg.batch_size) + math.ceil(sizes["test"]
+                                                    / cfg.batch_size)
+    check(launches == 2 * (TOOLS_ITERS + evals) + priced and sym == 0,
+          f"accuracy_curve: expansion launches {launches} != 2 x "
+          f"({TOOLS_ITERS} steps + {evals} evaluation batches) + {priced} "
+          f"priced, or sym launches {sym}")
+    for p in points:
+        rows = [r for r in read_jsonl(os.path.join(runs, p["run_id"],
+                                                   "metrics.jsonl"))
+                if r["kind"] == "train"]
+        p["first_ewma"] = rows[0]["ewma"]
+        check(p["final_ewma"] <= TOOLS_LOSS_RATIO * p["first_ewma"],
+              f"accuracy_curve: budget {p['budget']}'s EWMA fell from "
+              f"{p['first_ewma']:.4f} to only {p['final_ewma']:.4f}")
+    cuda_expand.reset_launches()
+    untrained = Experiment(cfg.replace(name="curve-untrained"),
+                           device=DEVICE).evaluate()
+    untrained_launches = cuda_expand.launches
+    check(untrained_launches == math.ceil(sizes["test"] / cfg.batch_size),
+          f"untrained evaluate: launches {untrained_launches}")
+    top = max(points, key=lambda p: p["budget"])
+    check(top["test_top1"] >= untrained["accuracy"] + TOOLS_TOP1_GAIN,
+          f"accuracy_curve: trained test top-1 {top['test_top1']:.4f} < "
+          f"untrained {untrained['accuracy']:.4f} + {TOOLS_TOP1_GAIN}")
+    path = ckpt.find_latest_valid(os.path.join(runs, top["run_id"]))
+    check(path is not None and ckpt.load_meta(path)["step"] == TOOLS_ITERS,
+          f"accuracy_curve: no checkpoint at step {TOOLS_ITERS}: {path}")
+    keep = ("budget", "actual_positions", "test_top1", "test_nll",
+            "first_ewma", "final_ewma", "samples_per_sec", "seconds")
+    return {"points": [{k: p[k] for k in keep} for p in points],
+            "untrained": untrained, "checkpoint": path, "priced": priced,
+            "launches": {"tools_accuracy_curve": launches,
+                         "tools_untrained_eval": untrained_launches}}
+
+
+def tools_symmetry_path(path: str, processed: str) -> dict:
+    """14c: ``symmetry_eval`` of the trained net on the test split and on
+    train positions, and its plain test top-1 in float32 on the CPU."""
+    from deepgo_tpu_torch.models.serving import make_policy_fn
+    from deepgo_tpu_torch.tools import symmetry_eval
+
+    sizes = split_sizes(processed)
+    out = {"launches": {"tools_symmetry_plain": 0},
+           "sym_launches": {"tools_symmetry_sym8": 0}}
+    for label, extra, n in (
+            ("test", ["--split", "test"], sizes["test"]),
+            ("train", ["--split", "train", "--limit", str(TOOLS_SYM_LIMIT)],
+             min(TOOLS_SYM_LIMIT, sizes["train"]))):
+        cuda_expand.reset_launches()
+        text = run_main(symmetry_eval.main, [
+            "--checkpoint", path, "--data-root", processed, "--batch",
+            str(TOOLS_SYM_BATCH), "--device", DEVICE, *extra],
+            "symmetry_eval")
+        launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+        lines = {r["mode"]: r for r in tool_lines(text, "mode")}
+        calls = math.ceil(n / TOOLS_SYM_BATCH) + 1  # + the warm-up
+        check(launches == sym == calls, f"symmetry_eval {label}: expansion "
+              f"launches {launches}, sym launches {sym}, not {calls} each")
+        check(lines["plain"]["n"] == lines["sym8"]["n"] == n,
+              f"symmetry_eval {label}: {lines['plain']['n']} positions")
+        out["launches"]["tools_symmetry_plain"] += launches
+        out["sym_launches"]["tools_symmetry_sym8"] += sym
+        out[label] = lines
+    _, model, cfg = load_policy(path, device="cpu")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    plain = make_policy_fn(cfg32, top_k=1, device="cpu")
+    cpu = symmetry_eval.evaluate(
+        lambda p, *a: plain(p, *a)["log_probs"], cpu_copy(model, cfg32),
+        GoDataset(processed, "test"), TOOLS_SYM_BATCH, 0, label="cpu")
+    card = out["test"]["plain"]["top1"]
+    check(abs(cpu["top1"] - card) <= TOOLS_CPU_TOP1_TOL,
+          f"symmetry_eval: card top-1 {card} vs CPU float32 {cpu['top1']}")
+    out["cpu_f32_test"] = cpu
+    return out
+
+
+def tools_selfplay_path(tmp: str, path: str) -> dict:
+    """14d: ``make_selfplay_corpus`` of the trained net against ``oneply``
+    and itself, transcribed."""
+    from deepgo_tpu_torch.tools import make_selfplay_corpus
+
+    out = os.path.join(tmp, "selfplay")
+    spec = f"checkpoint:{path}"
+    cuda_expand.reset_launches()
+    t0 = time.perf_counter()
+    with counted_policy_forwards() as forwards:
+        text = run_main(make_selfplay_corpus.main, [
+            "--out", out, "--pairs", f"{spec},oneply", f"{spec},{spec}",
+            *TOOLS_SELFPLAY, "--seed", str(SEED), "--device", DEVICE],
+            "make_selfplay_corpus")
+    seconds = time.perf_counter() - t0
+    launches = cuda_expand.launches
+    check(launches == forwards[0] > 0 and cuda_expand.sym_launches == 0,
+          f"make_selfplay_corpus: expansion launches {launches} != policy "
+          f"forwards {forwards[0]}")
+    totals = printed_dict(text, "games")
+    sizes = split_sizes(os.path.join(out, "processed"))
+    check(all(sizes.values()), f"make_selfplay_corpus: splits {sizes}")
+    return {"totals": totals, "examples": sizes, "forwards": forwards[0],
+            "positions_per_sec": totals["positions"] / seconds,
+            "launches": {"tools_selfplay_corpus": launches}}
+
+
+def tools_twoply_path(path: str) -> dict:
+    """14e: ``debug_twoply`` of the trained net."""
+    from deepgo_tpu_torch.tools import debug_twoply
+
+    cuda_expand.reset_launches()
+    with counted_policy_forwards() as forwards:
+        text = run_main(debug_twoply.main, [
+            "--ckpt", path, "--games", str(TOOLS_TWOPLY_GAMES), "--device",
+            DEVICE], "debug_twoply")
+    launches = cuda_expand.launches
+    check(launches == forwards[0] > 0 and cuda_expand.sym_launches == 0,
+          f"debug_twoply: expansion launches {launches} != forwards "
+          f"{forwards[0]}")
+    stats = next(line for line in text.splitlines()
+                 if line.startswith("twoply:"))
+    return {"stats": stats, "forwards": forwards[0],
+            "launches": {"tools_twoply": launches}}
+
+
+def tools_feed_path(tmp: str, processed: str) -> dict:
+    """14f: ``feed_bench`` at the JAX base config; each streamed run's
+    launches are read around it."""
+    from deepgo_tpu_torch.tools import feed_bench
+
+    measure = feed_bench.streamed_training_rate
+    counts = []
+
+    def counted(cfg, iters, device="cuda"):
+        priced = priced_steps()
+        cuda_expand.reset_launches()
+        record = measure(cfg, iters, device=device)
+        counts.append((cuda_expand.launches, cuda_expand.sym_launches,
+                       priced_steps() - priced))
+        return record
+
+    feed_bench.streamed_training_rate = counted
+    try:
+        text = run_main(feed_bench.main, [
+            "--data-root", processed, "--iters", str(TOOLS_FEED_ITERS),
+            "--out", os.path.join(tmp, "feed.jsonl"), "--device", DEVICE,
+            "--set", f"print_interval={TOOLS_FEED_WINDOW}",
+            f"run_dir={os.path.join(tmp, 'runs')}"], "feed_bench")
+    finally:
+        feed_bench.streamed_training_rate = measure
+    records = tool_lines(text, "kind")
+    streamed = [r for r in records if r["kind"] == "streamed_training"]
+    check(len(records) == 8 and len(streamed) == len(counts) == 4,
+          f"feed_bench: {len(records)} records, {len(counts)} streamed runs")
+    for r, (launches, sym, priced) in zip(streamed, counts):
+        check(launches == TOOLS_FEED_ITERS + priced and sym == 0,
+              f"feed_bench {r['wire']} prefetch {r['device_prefetch']}: "
+              f"launches {launches} != {TOOLS_FEED_ITERS} steps + {priced} "
+              f"priced, sym {sym}")
+        check(r["windows"] == TOOLS_FEED_ITERS // TOOLS_FEED_WINDOW - 1,
+              f"feed_bench: {r['windows']} steady windows")
+    return {"records": records,
+            "launches": {"tools_feed": sum(c[0] for c in counts)}}
+
+
+def tools_notebook_path(tmp: str) -> dict:
+    """14g: the port's walkthrough cells with ``DEVICE = "cuda"``, executed
+    in order in one namespace, in a directory holding ``data/sgf``."""
+    from deepgo_tpu_torch.tools import make_notebook
+
+    work = os.path.join(tmp, "notebook")
+    os.makedirs(os.path.join(work, "data"))
+    os.symlink(SGF_DIR, os.path.join(work, "data", "sgf"))
+    namespace: dict = {}
+    out = io.StringIO()
+    cuda_expand.reset_launches()
+    with contextlib.chdir(work):
+        for i, (kind, src) in enumerate(make_notebook.cells(DEVICE)):
+            if kind != "code":
+                continue
+            try:
+                with contextlib.redirect_stdout(out):
+                    exec(compile(src, f"walkthrough cell {i}", "exec"),
+                         namespace)
+            except Exception as e:  # noqa: BLE001 — reported as the check
+                check(False, f"walkthrough cell {i} raised {e!r}")
+    launches = cuda_expand.launches
+    check(namespace["DEVICE"] == DEVICE and len(namespace["games"]) == 8
+          and math.isfinite(namespace["more"]["final_ewma"]),
+          "walkthrough: the cells ran to their games")
+    for line in out.getvalue().splitlines()[-6:]:
+        print(f"  walkthrough| {line[:400]}", flush=True)
+    return {"test": namespace["test"], "launches":
+            {"tools_notebook": launches}}
+
+
+def phase_tools() -> dict:
+    """Phase 14: the tools on the card, each sub-path with the launch
+    counts zeroed just before it and read just after."""
+    t0 = time.perf_counter()
+    out, t = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tools-") as tmp:
+        processed = os.path.join(tmp, "corpus", "processed")
+        for key, fn in (
+                ("corpus", lambda: tools_corpus_path(tmp)),
+                ("curve", lambda: tools_curve_path(tmp, processed)),
+                ("symmetry", lambda: tools_symmetry_path(
+                    out["curve"]["checkpoint"], processed)),
+                ("selfplay", lambda: tools_selfplay_path(
+                    tmp, out["curve"]["checkpoint"])),
+                ("twoply", lambda: tools_twoply_path(
+                    out["curve"]["checkpoint"])),
+                ("feed", lambda: tools_feed_path(tmp, processed)),
+                ("notebook", lambda: tools_notebook_path(tmp))):
+            s = time.perf_counter()
+            out[key] = fn()
+            t[key] = time.perf_counter() - s
+            print(f"tools {key}: " + json.dumps(out[key], default=str)[:3000],
+                  flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["sub_seconds"] = t
+    print(f"phase 14: {out['seconds']:.2f} s " + json.dumps(t), flush=True)
+    return out
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -4215,7 +4598,7 @@ def parse_phases(argv: list) -> tuple[set, int]:
     Phases 1-3 always run; a phase that needs an earlier one's net brings
     it along (5-10 and 13 need phase 4's, 6, 8, 9 and 13 phase 5's
     too)."""
-    phases, cards = set(range(4, 14)), 1
+    phases, cards = set(range(4, 15)), 1
     args = list(argv)
     while args:
         flag = args.pop(0)
@@ -4226,8 +4609,8 @@ def parse_phases(argv: list) -> tuple[set, int]:
         else:
             raise SystemExit(f"chip_smoke: unknown argument {flag!r}; use "
                              "--phases LIST and --cards N")
-    if not phases <= set(range(1, 14)):
-        raise SystemExit(f"chip_smoke: phases run from 1 to 13: {phases}")
+    if not phases <= set(range(1, 15)):
+        raise SystemExit(f"chip_smoke: phases run from 1 to 14: {phases}")
     if cards not in (1, PAR_CARDS) or (cards > 1 and phases != {11}):
         raise SystemExit(f"chip_smoke: --cards {PAR_CARDS} goes with "
                          "--phases 11 alone")
@@ -4364,6 +4747,13 @@ def main() -> int:
                 expand_paths |= sub.get("launches", {})
                 sym_paths |= sub.get("sym_launches", {})
         summary["command_line_path"] = cmd
+    if 14 in phases:
+        tools = phase_tools()
+        for sub in tools.values():
+            if isinstance(sub, dict):
+                expand_paths |= sub.get("launches", {})
+                sym_paths |= sub.get("sym_launches", {})
+        summary["tools_path"] = tools
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512

@@ -349,9 +349,13 @@ class Experiment:
         obs_fetch = reg.histogram(
             "deepgo_train_fetch_seconds",
             "host time blocked fetching window losses (the device fence)")
+        # the attribution's liveness bucket; part=window keeps the
+        # boundary's bookkeeping out of the untimed residual
         obs_hook = reg.histogram(
             "deepgo_train_hook_seconds",
-            "window-hook time (heartbeat write + liveness checks)")
+            "window-boundary host time: the window hook (heartbeat write + "
+            "liveness checks); part=window the metrics lines, progress "
+            "print and flight-recorder tick")
         obs_wall = reg.counter(
             "deepgo_train_wall_seconds_total",
             "train-loop wall time: the attribution denominator")
@@ -465,27 +469,33 @@ class Experiment:
                         window_t0 = time.time()
                         sps = window_steps * cfg.batch_size / window_dt
                         done_steps, window_steps = window_steps, 0
-                        metrics.write("train", step=self.step, loss=last_loss,
-                                      ewma=ewma, samples_per_sec=sps)
-                        obs_window.observe(window_dt)
-                        obs_ewma.set(ewma)
-                        obs_sps.set(sps)
-                        if self.step % cfg.validation_interval == 0:
+                        with obs_hook.time(part="window"):
+                            metrics.write("train", step=self.step,
+                                          loss=last_loss, ewma=ewma,
+                                          samples_per_sec=sps)
+                            obs_window.observe(window_dt)
+                            obs_ewma.set(ewma)
+                            obs_sps.set(sps)
+                        validated = self.step % cfg.validation_interval == 0
+                        if validated:
                             with span("validate", step=self.step):
                                 last_val = self.validate(val_batches)
-                            metrics.write("validation", step=self.step,
-                                          **last_val)
                             with span("checkpoint_save", step=self.step):
                                 self._save_periodic()
-                            print(f"validation at iteration {self.step}: "
-                                  f"cost={last_val['cost']:.4f}, "
-                                  f"accuracy={last_val['accuracy']:.4f}")
-                        else:
-                            print(f"training {ewma:.4f} (samples per second "
-                                  f"{sps:.0f})")
-                        # one registry snapshot per print window keeps the
-                        # flight recorder's ring current (a no-op unarmed)
-                        flight.tick()
+                        with obs_hook.time(part="window"):
+                            if validated:
+                                metrics.write("validation", step=self.step,
+                                              **last_val)
+                                print(f"validation at iteration {self.step}: "
+                                      f"cost={last_val['cost']:.4f}, "
+                                      f"accuracy={last_val['accuracy']:.4f}")
+                            else:
+                                print(f"training {ewma:.4f} (samples per "
+                                      f"second {sps:.0f})")
+                            # one registry snapshot per print window keeps
+                            # the flight recorder's ring current (a no-op
+                            # unarmed)
+                            flight.tick()
                         # the elastic hook last, after the periodic
                         # checkpoint: a HostLost raised here finds the
                         # newest checkpoint already on disk

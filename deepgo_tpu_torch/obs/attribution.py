@@ -21,6 +21,7 @@ hot-path histogram or span the loop already feeds:
   checkpoint  deepgo_span_seconds{name=checkpoint_save}       periodic checkpoint writes
   validate    deepgo_span_seconds{name=validate}              validation passes
   liveness    deepgo_train_hook_seconds                       window hook: heartbeat write + ledger poll + liveness check
+                                                              (the port's part=window series: metrics lines, progress print, flight tick)
 
 Everything not covered is the **residual**, reported explicitly (the
 acceptance bar: >= 95 % of wall-clock attributed on a dryrun train, the

@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: no module of ``deepgo_tpu_torch``,
-and not ``chip_smoke.py``, imports ``jax`` or anything of ``deepgo_tpu``."""
+and not ``chip_smoke.py``, imports ``jax``, anything of ``deepgo_tpu`` or
+the repo's ``tools/`` scripts."""
 
 import ast
 import os
@@ -7,7 +8,7 @@ import os
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "deepgo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deepgo_tpu", "tools")
 
 
 def port_sources():
@@ -65,7 +66,15 @@ def test_port_sources_found():
                    ("cli.py",), ("graft_entry.py",),
                    ("analysis", "config.py"), ("analysis", "grammar.py"),
                    ("analysis", "linter.py"), ("experiments", "plot.py"),
-                   ("experiments", "repeated.py"), ("obs", "exporter.py")):
+                   ("experiments", "repeated.py"), ("obs", "exporter.py"),
+                   ("tools", "__init__.py"), ("tools", "subset_split.py"),
+                   ("tools", "make_corpus.py"),
+                   ("tools", "make_selfplay_corpus.py"),
+                   ("tools", "accuracy_curve.py"),
+                   ("tools", "symmetry_eval.py"), ("tools", "feed_bench.py"),
+                   ("tools", "debug_twoply.py"), ("tools", "t7reader.py"),
+                   ("tools", "convert_torch_dataset.py"),
+                   ("tools", "make_notebook.py")):
         assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 
