@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, game, loop, parallel and tool paths on CUDA cards and check them.
+"""Drive the PyTorch port's serving, training, game, loop, parallel, tool and bench paths on CUDA cards and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit:
@@ -237,8 +237,37 @@ then, each phase failing the run on the first disagreement:
    = its steps (+ pricing). (g) the port's walkthrough notebook cells
    (``make_notebook.cells("cuda")``) executed in order in one namespace.
 
+15. the port's bench (``deepgo_tpu_torch/bench.py``) at the card sizes,
+   cut in depth only (128 requests a submitter in the serving modes, of
+   512). First ``python -m deepgo_tpu_torch.bench --mode
+   inference`` in a process of its own (probe and watchdog armed): one
+   line, exit 0, the card run recorded in a temporary last-good table.
+   Then every mode through ``bench.main`` in this process, each on a
+   registry and sanitizers of its own with the launch counts zeroed just
+   before it and read just after: ``inference --gate`` (passes at the
+   child's record; launches = 8 batches x (warm-up + 3 repeats + the
+   priced call)), the same at 10x the record (exits 1), ``latency``
+   (launches = forwards), ``train`` and ``large`` (launches = steps + the
+   steps the cost ledger prices), ``serving`` (launches = the priced rungs
+   + every engine's forwards), ``serving --faults`` (a restart),
+   ``--fleet 2 --faults`` (a respawn, the reload through, both replicas
+   serving), ``--variant int8+sym`` on the grid net (its tolerance gate
+   passes; the sym kernel launches there and only there), ``--trace``
+   over a capture recorded first with ``cli workload record`` (512
+   requests over data/sgf's openings on ``full``: every request answered,
+   the replay's timeline within its bar, the cache A/B), and
+   ``distributed --faults`` (two ``cli train --elastic`` hosts of
+   ``full`` bf16 at B = 256 on the card: one recovery, steps lost <= the
+   checkpoint interval, the survivor's launches >= its steps). Each line:
+   value > 0, no error, ``device`` the card's nvidia-smi line, every
+   roofline MFU finite and <= 1.05; every request of a serving mode
+   resolved. Two errors are accepted in their exact shapes and printed
+   (``bench_error``, ROADMAP C7): the fleet plan's one typed
+   ``FailoverExhausted``, and the clean-run silence contract's step or
+   drift detections on the dispatch p99.
+
 ``--phases LIST`` (e.g. ``--phases 11``) runs only the listed phases of
-4-14 (and the phases their nets come from); 1-3 always run.
+4-15 (and the phases their nets come from); 1-3 always run.
 ``--phases 11 --cards 4`` is phase 11 on four cards instead, one NCCL rank
 per card (it exits 1 without four cards): the layouts 4 x 1, 2 x 2 and
 both with ZeRO on the float32 config of (a) at a global B = 64, each held
@@ -4577,6 +4606,511 @@ def phase_tools() -> dict:
     return out
 
 
+# Phase 15, the port's bench (deepgo_tpu_torch/bench.py): every ported mode
+# through bench.main in this process at the card sizes (the bench's
+# *_SIZES["cuda"] tables). Cut, depth only: the serving modes' requests a
+# submitter (512 -> 128; a fleet serves ~0.5-0.8k boards/s). The trace is a
+# capture the phase records first with `cli workload record` over
+# data/sgf's openings.
+BENCH_MODES = (
+    ("latency", ["--mode", "latency"]),
+    ("train", ["--mode", "train"]),
+    ("large", ["--mode", "large"]),
+    ("serving", ["--mode", "serving"]),
+    ("serving_faults", ["--mode", "serving", "--faults"]),
+    ("fleet_faults", ["--mode", "serving", "--fleet", "2", "--faults"]),
+    ("variant", ["--mode", "serving", "--variant", "int8+sym"]),
+    ("trace", ["--mode", "serving", "--trace", "{capture}"]),
+    ("distributed", ["--mode", "distributed", "--faults"]),
+)
+BENCH_CAPTURE = ("--requests", "512", "--games", "32",
+                 "--opening-moves", "12", "--model", "full")
+BENCH_REQUESTS_PER_SUBMITTER = 128  # of the bench's 512 (depth only)
+BENCH_MFU_CAP = 1.05
+BENCH_GATE_FACTOR = 10.0   # the last-good value a --gate run must fail
+
+
+class EngineForwards:
+    """Every ``InferenceEngine`` made inside the block: its name and its
+    ``forwards`` (warm-ups included). A closed engine is read when it
+    closes; one never closed (a killed replica) is read at the end, when
+    ``started`` is asked."""
+
+    def __enter__(self):
+        from deepgo_tpu_torch.serving import engine as engine_mod
+
+        self.engines: dict = {}
+        self._made: list = []
+        self._cls = engine_mod.InferenceEngine
+        self._close = close = self._cls.close
+        self._init = init = self._cls.__init__
+        engines, made = self.engines, self._made
+
+        def counting(eng, *args, **kwargs):
+            try:
+                return close(eng, *args, **kwargs)
+            finally:  # keyed by the engine itself: an id can be reused
+                engines[eng] = (eng.name, eng.stats()["forwards"])
+
+        def making(eng, *args, **kwargs):
+            init(eng, *args, **kwargs)
+            made.append(eng)
+
+        self._cls.close = counting
+        self._cls.__init__ = making
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.close = self._close
+        self._cls.__init__ = self._init
+
+    def forwards(self, keep=lambda name: True) -> int:
+        """The forwards of the engines closed in the block."""
+        return sum(n for name, n in self.engines.values() if keep(name))
+
+    def started(self) -> int:
+        """The forwards of every engine made in the block, closed or not:
+        a forward is counted before it runs, so this bounds its launches
+        from above."""
+        return sum(eng.stats()["forwards"] for eng in self._made)
+
+
+def bench_line(text: str, label: str) -> dict:
+    lines = [line for line in text.splitlines() if line.startswith("{")]
+    check(len(lines) == 1, f"bench {label}: {len(lines)} JSON lines")
+    print(f"bench-line {label} {lines[0]}", flush=True)
+    return json.loads(lines[0])
+
+
+def bench_run(label: str, argv: list, card: str, expect_exit: int = 0
+              ) -> dict:
+    """``bench.main(argv)`` in this process, with the launch counts zeroed
+    just before it and read just after, each run on sanitizers of its own
+    (the JAX bench runs a mode a process)."""
+    from deepgo_tpu_torch import bench
+    from deepgo_tpu_torch.analysis import cudacheck, lockcheck
+
+    saved = {k: os.environ.get(k) for k in (
+        "DEEPGO_LOCKCHECK", "DEEPGO_XLACHECK", "DEEPGO_FLIGHT_DIR")}
+    # a flight directory of the run's own: its trace.jsonl holds this
+    # run's anomaly events alone, its ts/ this run's series
+    flight = tempfile.mkdtemp(prefix=f"{label}-",
+                              dir=os.environ.get("DEEPGO_FLIGHT_DIR"))
+    os.environ["DEEPGO_FLIGHT_DIR"] = flight
+    lockcheck.enable(None)
+    cudacheck.enable(None)
+    lockcheck.reset()
+    cudacheck.reset()
+    private_registry()  # the rungs' dispatch times of this run alone
+    hosts: list = []
+    distributed = bench._bench_distributed
+    bench._bench_distributed = lambda faults, device: distributed(
+        faults, device, hosts_out=hosts)
+    out = io.StringIO()
+    code = 0
+    priced = priced_steps()
+    t0 = time.perf_counter()
+    cuda_expand.reset_launches()
+    try:
+        with EngineForwards() as engines, contextlib.redirect_stdout(out):
+            bench.main([*argv, "--device", DEVICE])
+    except SystemExit as e:
+        code = e.code or 0
+    finally:
+        launches, sym = cuda_expand.launches, cuda_expand.sym_launches
+        bench._bench_distributed = distributed
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    line = bench_line(out.getvalue(), label)
+    check(code == expect_exit, f"bench {label} exited {code}, not "
+          f"{expect_exit}: {line.get('error')} {line.get('gate')}")
+    check(line["value"] > 0 and "errors" not in line,
+          f"bench {label}: value {line['value']}")
+    bench_error(label, line, flight)
+    suffix = " (2 simulated elastic hosts)" if label == "distributed" else ""
+    check(line["device"] == card + suffix,
+          f"bench {label}: device {line['device']!r}, not the card")
+    mfus = [e["mfu"] for e in (line.get("roofline") or {}).get(
+        "entries", {}).values() if e.get("mfu") is not None]
+    check(all(math.isfinite(m) and 0 <= m <= BENCH_MFU_CAP for m in mfus),
+          f"bench {label}: roofline MFU {mfus}")
+    check(bool(mfus) == (label not in ("latency", "distributed")),
+          f"bench {label}: {len(mfus)} roofline MFU entries")
+    check((sym > 0) == (label == "variant"),
+          f"bench {label}: {sym} sym kernel launches")
+    return {"line": line, "launches": launches, "sym_launches": sym,
+            "priced": priced_steps() - priced, "engines": engines,
+            "hosts": hosts, "seconds": seconds}
+
+
+CLEAN_ANOMALY_ERROR = re.compile(
+    r"^\d+ telemetry anomalies on a clean run \(detector must stay "
+    r"silent\)$")
+FAILOVER_EXHAUSTED_ERROR = re.compile(
+    r"^FailoverExhausted: FleetRouter\[bench-fleet\] request failed over "
+    r"\d+ time\(s\) and no healthy replica remains$")
+DISPATCH_P99 = "deepgo_serving_dispatch_seconds"
+
+
+def bench_error(label: str, line: dict, flight: str) -> None:
+    """No ``error`` in the line, but for two documented ones (PERF.md,
+    ROADMAP C7), each held to its exact shape:
+
+    * ``fleet_faults``: the JAX bench's default fleet plan
+      (``fleet_route:transient@2``) can put both transient route faults on
+      one request, which has then excluded both replicas of the fleet and
+      resolves as a typed ``FailoverExhausted`` (the JAX bench on the CPU
+      does so in most runs). Accepted when that is the line's only error,
+      exactly one request failed, and the chaos was detected;
+    * a clean ``serving`` or ``variant`` run's silence contract: on the
+      card the two-sided step and drift detectors fire on the dispatch
+      p99 of the run's cumulative histogram as the start-up's slow
+      dispatches dilute (the p99 falls while the mean dispatch time of
+      the last second holds). Accepted only when every detection of the
+      run (its own ``trace.jsonl``) is a step or drift *down* on a
+      dispatch p99: a p99 that rises, or any other series, still fails.
+      The run's series are printed beside it (``c7_evidence``)."""
+    error = line.get("error")
+    if error is None:
+        return
+    anomalies = line.get("anomalies") or {}
+    if label == "fleet_faults":
+        parts = error.split("; ")
+        check(len(parts) == 1 and FAILOVER_EXHAUSTED_ERROR.match(parts[0])
+              and line["outcomes"].get("failed") == 1
+              and anomalies.get("count", 0) >= 1,
+              f"bench {label}: error {error!r}, outcomes {line['outcomes']}, "
+              f"{anomalies.get('count')} anomalies")
+        print(f"bench {label}: accepted (C7): {error}", flush=True)
+        return
+    check(label in ("serving", "variant") and bool(
+        CLEAN_ANOMALY_ERROR.match(error)), f"bench {label}: error {error!r}")
+    events, path = [], os.path.join(flight, "trace.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            events = [rec for rec in map(json.loads, f)
+                      if rec.get("kind") == "anomaly"]
+    falls = [e for e in events if e["metric"] == DISPATCH_P99
+             and e["series"].endswith(":p99")
+             and e["detector"] in ("step", "drift")
+             and e["value"] < e["baseline"]]
+    c7_evidence(label, os.path.join(flight, "ts"), events)
+    check(len(events) == anomalies.get("count") and falls == events,
+          f"bench {label}: error {error!r}: {len(events)} detections "
+          f"recorded, {len(falls)} of them falls of a dispatch p99: "
+          f"{events}")
+    print(f"bench {label}: accepted (C7): {error}; every detection a fall "
+          f"of a dispatch p99: " + json.dumps(
+              [{k: e[k] for k in ("series", "detector", "value", "baseline",
+                                  "score")} for e in events]), flush=True)
+
+
+def c7_evidence(label: str, ts_dir: str, events: list) -> None:
+    """Prints each fired dispatch p99 series of the run's store: per tick
+    the dispatch count, the cumulative p99 the detector watched, and the
+    mean dispatch time of the last second (the sum's and count's deltas
+    over 10 ticks), a windowed reading of the same dispatches. The same
+    detector is run over that windowed mean and its detections printed."""
+    from deepgo_tpu_torch.obs import anomaly as anomaly_mod
+    from deepgo_tpu_torch.obs import registry as obs_registry
+    from deepgo_tpu_torch.obs import timeseries as ts_mod
+
+    samples = ts_mod.load_samples(ts_dir)
+    if not samples:
+        return
+    t0 = samples[0]["t"]
+    for series in sorted({e["series"] for e in events
+                          if e["series"].startswith(DISPATCH_P99)
+                          and e["series"].endswith(":p99")}):
+        base = series[:-len(":p99")]
+        got = {f: dict(ts_mod.series_from_samples(samples, f"{base}:{f}")
+                       .get(f"{base}:{f}", [])) for f in ("p99", "count",
+                                                          "sum")}
+        ticks = sorted(got["p99"])
+        witness = anomaly_mod.AnomalyDetector(
+            watchlist=(anomaly_mod.WatchSpec("windowed_mean"),),
+            registry=obs_registry.MetricsRegistry(), flight=False)
+        rows, hits = [], []
+        for i, t in enumerate(ticks):
+            j = max(0, i - 10)
+            dn = got["count"].get(t, 0) - got["count"].get(ticks[j], 0)
+            ds = got["sum"].get(t, 0) - got["sum"].get(ticks[j], 0)
+            mean = ds / dn if dn > 0 and i >= 10 else None
+            if mean is not None:
+                hits += [a.to_dict() for a in witness.observe(
+                    t, {"windowed_mean": mean})]
+            rows.append([round(t - t0, 2), int(got["count"].get(t, 0)),
+                         round(got["p99"][t] * 1e3, 3),
+                         None if mean is None else round(mean * 1e3, 3)])
+        print(f"c7_evidence {label} {series}: [t_s, count, p99_ms, "
+              f"mean_1s_ms] {json.dumps(rows)}", flush=True)
+        print(f"c7_evidence {label} {series}: the detector over the "
+              f"windowed mean: {len(hits)} detections {json.dumps(hits)}",
+              flush=True)
+
+
+def check_bench_launches(label: str, run: dict) -> int:
+    """Each mode's expansion launches against what it counts: the
+    forwards and steps it ran, the priced entries, the engines' forwards.
+    Returns the launches to book (the survivor's for distributed)."""
+    from deepgo_tpu_torch import bench
+
+    line, launches = run["line"], run["launches"]
+    eng = run["engines"]
+    if label == "inference":
+        b, k, r = bench.INFERENCE_SIZES["cuda"]
+        want = k * (1 + r + 1)  # warm-up, repeats, the priced call
+        check(launches == want, f"bench inference: {launches} launches "
+              f"!= {k} batches x {r + 2} calls")
+    elif label == "latency":
+        sizes, reps = bench.LATENCY_SIZES["cuda"]
+        want = len(sizes) * (reps + 1)
+        check(launches == want, f"bench latency: {launches} launches != "
+              f"{len(sizes)} sizes x {reps + 1} forwards")
+    elif label in ("train", "large"):
+        b, k, r = (bench.TRAIN_SIZES if label == "train"
+                   else bench.LARGE_SIZES)["cuda"]
+        runs = (line["configs"] if label == "train"
+                else line["settings"]).values()
+        steps = sum((r + 1) * max(1, k) for s in runs
+                    if "samples_per_sec" in s)
+        errors = [s["error"] for s in runs if "error" in s]
+        # a setting may fail only by running out of memory (the trade
+        # ``large`` probes); its launches before the OOM are not counted
+        check(all(e.startswith("OutOfMemoryError:") for e in errors),
+              f"bench {label}: settings failed: {errors}")
+        check(launches == steps + run["priced"] or (
+            errors and launches >= steps + run["priced"]),
+              f"bench {label}: {launches} launches != {steps} steps + "
+              f"{run['priced']} priced")
+    elif label == "distributed":
+        (rc, out, err), _ = run["hosts"]
+        done = tagged(out, "ELASTIC_DONE")
+        check(line["recoveries"] >= 1 and line["steps_lost"]
+              <= bench.DIST_CKPT_INTERVAL and line["victim_rc"] == -9,
+              f"bench distributed: {line['recoveries']} recoveries, "
+              f"{line['steps_lost']} steps lost, victim {line['victim_rc']}")
+        launches = done[-1]["expand_launches"]
+        check(launches >= line["final_step"],
+              f"bench distributed: the survivor launched {launches} for "
+              f"{line['final_step']} steps")
+    else:
+        rungs = len(bench.SERVING_SIZES["cuda"][3])
+        if label == "variant":
+            f32 = eng.forwards(lambda n: n != "vab-int8+sym")
+            sym = eng.forwards(lambda n: n == "vab-int8+sym")
+            check(launches == rungs + f32 and run["sym_launches"]
+                  >= rungs + sym, f"bench variant: {launches} launches != "
+                  f"{rungs} priced + {f32} f32 forwards, sym "
+                  f"{run['sym_launches']} < {rungs} + {sym}")
+        elif label in ("serving", "trace"):
+            want = rungs + eng.forwards()
+            check(launches == want, f"bench {label}: {launches} launches != "
+                  f"{rungs} priced + {eng.forwards()} engine forwards")
+        else:
+            # an injected fault may stop a forward before its launch, and
+            # a killed engine is not closed: at least the A/B bursts after
+            # the chaos (its plan reset), at most every forward of every
+            # engine started (counted before it runs)
+            ab = eng.forwards(lambda n: n.startswith("ab-"))
+            started = eng.started()
+            check(rungs + ab <= launches <= rungs + started,
+                  f"bench {label}: {launches} launches outside [{rungs} "
+                  f"priced + {ab} A/B forwards, {rungs} priced + {started} "
+                  f"forwards of every engine started]")
+    return launches
+
+
+def check_bench_mode(label: str, line: dict) -> None:
+    """The serving modes' own accounting: every request resolved, the
+    chaos visible, the reload and the variant gate through."""
+    if "submitted" in line:
+        check(line["submitted"] == sum(line["outcomes"].values()),
+              f"bench {label}: submitted {line['submitted']} != outcomes "
+              f"{line['outcomes']}")
+    if label == "serving_faults":
+        check(line["restarts"] >= 1, f"bench {label}: no restart")
+    if label == "fleet_faults":
+        check(line["respawns"] >= 1 and line["reload"]["ok"] is True
+              and line["replicas_serving"] == 2,
+              f"bench {label}: respawns {line['respawns']}, reload "
+              f"{line['reload']}, serving {line['replicas_serving']}")
+    if label == "variant":
+        v = line["variant"]
+        check(v["served"] and v["tolerance"]["verdict"] == "pass",
+              f"bench variant: tolerance {v['tolerance'].get('verdict')}")
+    if label == "trace":
+        check(line["outcomes"].get("ok") == line["submitted"]
+              and line["replay"]["fidelity_ok"],
+              f"bench trace: outcomes {line['outcomes']}")
+
+
+def bench_cli_contract(tmp: str, card: str) -> dict:
+    """The command line in a process of its own: ``python -m
+    deepgo_tpu_torch.bench --mode inference`` (probe and watchdog armed)
+    prints one line, exits 0 and records the card run in a temporary
+    last-good table."""
+    table = os.path.join(tmp, "last_good.json")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BENCH_PREFLIGHT", "BENCH_WATCHDOG")}
+    env.update(BENCH_LAST_GOOD=table, DEEPGO_FLIGHT="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepgo_tpu_torch.bench", "--mode",
+         "inference"], capture_output=True, text=True, timeout=600, env=env)
+    check(proc.returncode == 0, f"bench child exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    check(len(lines) == 1, f"bench child printed {len(lines)} lines")
+    line = bench_line(lines[0], "cli_inference")
+    check(line["value"] > 0 and line["device"] == card
+          and line["probe"]["live"] is True,
+          f"bench child: {line['value']} on {line['device']!r}, probe "
+          f"{line['probe']}")
+    with open(table) as f:
+        recorded = json.load(f)[line["metric"]]
+    check(recorded["value"] == line["value"], "the child's run recorded")
+    return {"line": line, "table": table,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_bench(requests: int = BENCH_REQUESTS_PER_SUBMITTER) -> dict:
+    """Phase 15: the port's bench, every ported mode at the card sizes, each
+    with the launch counts zeroed just before it and read just after; the
+    serving modes at ``requests`` a submitter."""
+    from deepgo_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    card = card_line()
+    saved_env = {k: os.environ.get(k) for k in (
+        "BENCH_PREFLIGHT", "BENCH_WATCHDOG", "DEEPGO_FLIGHT_DIR")}
+    saved_table = bench.LAST_GOOD_PATH
+    saved_sizes = bench.SERVING_SIZES
+    name, submitters, _, ladder = saved_sizes["cuda"]
+    bench.SERVING_SIZES = {**saved_sizes, "cuda": (
+        name, submitters, requests, ladder)}
+    out, t = {"launches": {}, "sym_launches": {}}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bench-") as tmp:
+        os.environ.update(BENCH_PREFLIGHT="0", BENCH_WATCHDOG="0",
+                          DEEPGO_FLIGHT_DIR=tmp)
+        try:
+            s = time.perf_counter()
+            cli = bench_cli_contract(tmp, card)
+            t["cli_inference"] = time.perf_counter() - s
+            bench.LAST_GOOD_PATH = cli["table"]
+            # the gate reads the child's record: pass at it, fail at 10x
+            run = bench_run("inference", ["--mode", "inference", "--gate"],
+                            card)
+            check(run["line"]["gate"]["verdict"] in ("pass", "warn"),
+                  f"bench gate at the recorded value: {run['line']['gate']}")
+            out["launches"]["bench_inference"] = check_bench_launches(
+                "inference", run)
+            runs = {"cli_inference": cli["line"], "inference": run["line"]}
+            t["inference"] = run["seconds"]
+            with open(cli["table"]) as f:
+                table = json.load(f)
+            metric = run["line"]["metric"]
+            table[metric]["value"] = BENCH_GATE_FACTOR * run["line"]["value"]
+            with atomic_write(cli["table"], mode="w") as f:
+                json.dump(table, f)
+            s = time.perf_counter()
+            failed = bench_run("inference_gate_10x", [
+                "--mode", "inference", "--gate"], card, expect_exit=1)
+            check(failed["line"]["gate"]["verdict"] == "fail",
+                  f"bench gate at {BENCH_GATE_FACTOR}x: "
+                  f"{failed['line']['gate']}")
+            t["inference_gate_10x"] = time.perf_counter() - s
+            capture = os.path.join(tmp, "capture")
+            s = time.perf_counter()
+            run_cli(["workload", "record", "--out", capture, "--sgf-dir",
+                     os.path.join(SGF_DIR, "train"), *BENCH_CAPTURE,
+                     "--device", DEVICE])
+            t["capture"] = time.perf_counter() - s
+            failures = []
+            for label, argv in BENCH_MODES:
+                s = time.perf_counter()
+                try:  # every mode runs; the phase fails after them
+                    run = bench_run(label, [a.format(capture=capture)
+                                            for a in argv], card)
+                    check_bench_mode(label, run["line"])
+                    out["launches"][f"bench_{label}"] = \
+                        check_bench_launches(label, run)
+                    if label == "variant":
+                        out["sym_launches"]["bench_variant_int8_sym"] = \
+                            run["sym_launches"]
+                    runs[label] = run["line"]
+                except RuntimeError as e:
+                    print(f"bench {label}: FAILED {e}", flush=True)
+                    failures.append(str(e))
+                t[label] = time.perf_counter() - s
+            check(not failures, " | ".join(failures))
+        finally:
+            print(f"phase 15 sub-seconds: {json.dumps(t)}", flush=True)
+            bench.LAST_GOOD_PATH = saved_table
+            bench.SERVING_SIZES = saved_sizes
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    out["numbers"] = bench_numbers(runs)
+    out["seconds"] = time.perf_counter() - t0
+    out["sub_seconds"] = t
+    print(f"phase 15: {out['seconds']:.2f} s " + json.dumps(t), flush=True)
+    print("bench numbers: " + json.dumps(out["numbers"]), flush=True)
+    return out
+
+
+def bench_numbers(runs: dict) -> dict:
+    """The numbers PERF.md keeps from each bench line."""
+    def mfu(line):
+        return {k: e["mfu"] for k, e in line["roofline"]["entries"].items()
+                if e.get("mfu") is not None}
+
+    serving = {k: {f: runs[k].get(f) for f in (
+        "value", "p50_ms", "p99_ms", "batch_occupancy", "outcomes",
+        "restarts", "failovers", "respawns", "failover_p50_ms")
+        if f in runs[k]} for k in ("serving", "serving_faults",
+                                   "fleet_faults", "variant", "trace")}
+    serving["fleet_faults"]["tiers"] = runs["fleet_faults"]["tiers"]
+    var = runs["variant"]["variant"]
+    trace = runs["trace"]
+    dist = runs["distributed"]
+    return {
+        "inference": {k: runs["inference"][k] for k in (
+            "value", "vs_baseline", "ms_per_batch", "noise_frac")}
+        | {"mfu": mfu(runs["inference"]),
+           "cli_value": runs["cli_inference"]["value"]},
+        "train": {**runs["train"]["configs"], "mfu": mfu(runs["train"])},
+        "large": {**runs["large"]["settings"], "mfu": mfu(runs["large"])},
+        "latency": runs["latency"]["batches"],
+        "serving": serving,
+        "serving_mfu": mfu(runs["serving"]),
+        "variant": {k: var.get(k) for k in (
+            "f32_boards_per_sec", "boards_per_sec",
+            "throughput_ratio_vs_f32", "cost_ratio_vs_plain_per_rung")},
+        "trace": {k: trace["cache"].get(k) for k in (
+            "speedup", "ok", "hit_rate", "forward_frac_avoided",
+            "off_boards_per_sec", "on_boards_per_sec")}
+        | {"span_error_frac": trace["replay"].get("span_error_frac"),
+           "lag_frac": trace["replay"].get("lag_frac")},
+        "ab_overhead": {k: {b: runs[k][b]["ab"]["overhead_frac"] for b in (
+            "tracing", "anomalies", "workload")} for k in (
+            "serving", "serving_faults", "fleet_faults", "variant",
+            "trace")},
+        "anomalies": {k: runs[k]["anomalies"].get("count") for k in (
+            "serving", "serving_faults", "fleet_faults", "variant",
+            "trace")},
+        "distributed": {k: dist[k] for k in (
+            "value", "detect_latency_s", "steps_lost", "tp_from", "tp_to",
+            "final_step", "survivor_samples_per_sec")},
+    }
+
+
 def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
     return {"name": name, "route": "cuda",
             "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
@@ -4593,12 +5127,15 @@ def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
             "by_shape": rows}
 
 
-def parse_phases(argv: list) -> tuple[set, int]:
-    """``--phases 4,11`` (default: all) and ``--cards N`` (default 1).
-    Phases 1-3 always run; a phase that needs an earlier one's net brings
-    it along (5-10 and 13 need phase 4's, 6, 8, 9 and 13 phase 5's
-    too)."""
-    phases, cards = set(range(4, 15)), 1
+def parse_phases(argv: list) -> tuple[set, int, int]:
+    """``--phases 4,11`` (default: all), ``--cards N`` (default 1) and
+    ``--bench-requests N``, phase 15's serving requests a submitter
+    (default 128; the bench's own is 512, where C7's clean-run
+    detections were seen). Phases 1-3 always run; a phase that needs an
+    earlier one's net brings it along (5-10 and 13 need phase 4's, 6, 8,
+    9 and 13 phase 5's too)."""
+    phases, cards = set(range(4, 16)), 1
+    requests = BENCH_REQUESTS_PER_SUBMITTER
     args = list(argv)
     while args:
         flag = args.pop(0)
@@ -4606,11 +5143,14 @@ def parse_phases(argv: list) -> tuple[set, int]:
             phases = {int(p) for p in args.pop(0).split(",")}
         elif flag == "--cards" and args:
             cards = int(args.pop(0))
+        elif flag == "--bench-requests" and args:
+            requests = int(args.pop(0))
         else:
             raise SystemExit(f"chip_smoke: unknown argument {flag!r}; use "
-                             "--phases LIST and --cards N")
-    if not phases <= set(range(1, 15)):
-        raise SystemExit(f"chip_smoke: phases run from 1 to 14: {phases}")
+                             "--phases LIST, --cards N and "
+                             "--bench-requests N")
+    if not phases <= set(range(1, 16)):
+        raise SystemExit(f"chip_smoke: phases run from 1 to 15: {phases}")
     if cards not in (1, PAR_CARDS) or (cards > 1 and phases != {11}):
         raise SystemExit(f"chip_smoke: --cards {PAR_CARDS} goes with "
                          "--phases 11 alone")
@@ -4618,7 +5158,7 @@ def parse_phases(argv: list) -> tuple[set, int]:
         phases.add(5)
     if phases & {5, 6, 8, 9, 10, 13}:
         phases.add(4)
-    return phases, cards
+    return phases, cards, requests
 
 
 def main() -> int:
@@ -4642,7 +5182,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--par-rank"] and len(sys.argv) == 6:
         return par_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                              int(sys.argv[4]), sys.argv[5])
-    phases, cards = parse_phases(sys.argv[1:])
+    phases, cards, bench_requests = parse_phases(sys.argv[1:])
     t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4754,6 +5294,12 @@ def main() -> int:
                 expand_paths |= sub.get("launches", {})
                 sym_paths |= sub.get("sym_launches", {})
         summary["tools_path"] = tools
+    if 15 in phases:
+        benched = phase_bench(bench_requests)
+        expand_paths |= benched["launches"]
+        sym_paths |= benched["sym_launches"]
+        summary["bench_path"] = {k: v for k, v in benched.items()
+                                 if k != "launches"}
 
     def top_row(rows, s):
         return next(r for r in rows if r["batch"] == 512

@@ -47,7 +47,7 @@ from collections import deque
 
 from .registry import MetricsRegistry, get_registry
 from .sentinel import get_flight_recorder
-from .timeseries import TimeSeriesStore, key_matches, split_key
+from .timeseries import TimeSeriesStore, key_matches, series_key, split_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +154,7 @@ class _SeriesState:
     """O(1) streaming state for one (spec, series) pair."""
 
     __slots__ = ("n", "ewma", "slow", "mad", "prev", "prev_t",
-                 "drift_run", "step_armed", "drift_armed")
+                 "drift_run", "step_armed", "drift_armed", "seen")
 
     def __init__(self):
         self.n = 0
@@ -166,6 +166,27 @@ class _SeriesState:
         self.drift_run = 0
         self.step_armed = True
         self.drift_armed = True
+        self.seen: float | None = None  # a quantile's histogram count
+
+
+def _fresh(state: _SeriesState, key: str, values: dict) -> bool:
+    """Does this tick carry new information for ``key``? A histogram
+    quantile (``p50``/``p99``) moves only with new observations: on a
+    tick where its series' ``count`` did not change it repeats the last
+    value, and judged as a sample it shrinks the scale estimate toward
+    zero until the next observation scores without bound (a series
+    quiet for seconds then fired at z in the thousands on a 0.5 % move).
+    Such ticks are skipped; every other key is judged on every tick."""
+    name, label, field = split_key(key)
+    if field not in ("p50", "p99"):
+        return True
+    count = values.get(series_key(name, label, "count"))
+    if count is None:
+        return True
+    if count == state.seen:
+        return False
+    state.seen = count
+    return True
 
 
 class AnomalyDetector:
@@ -229,7 +250,9 @@ class AnomalyDetector:
                 if not spec.matches(key):
                     continue
                 state = self._states.setdefault((idx, key), _SeriesState())
-                found.extend(self._judge(spec, key, state, float(raw), t))
+                if _fresh(state, key, values):
+                    found.extend(self._judge(spec, key, state, float(raw),
+                                             t))
         self._primed = True
         for a in found:
             self._emit(a)

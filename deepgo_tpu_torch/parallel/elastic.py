@@ -48,6 +48,7 @@ from dataclasses import dataclass
 
 from ..obs import (configure_flight, flight_dump, get_registry,
                    health_from_ledger, start_exporter)
+from ..ops import cuda_expand
 from ..utils.metrics import MetricsWriter
 from .deadlines import guard_first_call, initialize_with_deadline
 from .distributed import hybrid_mesh, per_host_batch, world_size
@@ -355,6 +356,9 @@ def run_elastic(run_dir: str, total_iters: int, *, overrides: dict | None = None
             recovery_latency_s=[round(r["recovery_latency_s"], 3)
                                 for r in recoveries],
             heartbeats=writer.beats,
+            # this host's expansion kernel launches (0 on the CPU), so a
+            # caller that drives hosts as processes can read them
+            expand_launches=cuda_expand.launches,
         )
         metrics.write("elastic_done", **{k: v for k, v in summary.items()
                                          if k != "checkpoint"})

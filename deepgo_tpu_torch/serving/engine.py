@@ -243,7 +243,12 @@ class InferenceEngine:
                               dtype=np.uint8)
             ones = np.ones(b, dtype=np.int32)
             t_fwd = time.monotonic()
-            self._run_forward(packed, ones, ones)
+            # staged at the declared point when the sanitizer is armed
+            # (identity when off): its sync check is process-wide, so a
+            # warm-up beside another engine's guarded dispatch (a fleet
+            # respawn) must not copy from pageable memory
+            self._run_forward(*cudacheck.stage_h2d(
+                packed, ones, ones, device=self._device))
             dt = time.monotonic() - t_fwd
             with self._lock:
                 self._dispatch_secs.append(dt)

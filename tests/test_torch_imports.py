@@ -74,7 +74,7 @@ def test_port_sources_found():
                    ("tools", "symmetry_eval.py"), ("tools", "feed_bench.py"),
                    ("tools", "debug_twoply.py"), ("tools", "t7reader.py"),
                    ("tools", "convert_torch_dataset.py"),
-                   ("tools", "make_notebook.py")):
+                   ("tools", "make_notebook.py"), ("bench.py",)):
         assert os.path.join("deepgo_tpu_torch", *module) in rel
 
 

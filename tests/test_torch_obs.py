@@ -265,6 +265,42 @@ def test_anomaly_findings_like_jax(runs):
     assert "step" in kinds and "rate" in kinds
 
 
+DISPATCH_KEY = "deepgo_serving_dispatch_seconds{bucket=8,engine=bench}"
+
+
+def _detections(mod, reg_mod, ticks):
+    det = mod.AnomalyDetector(registry=reg_mod.MetricsRegistry(),
+                              flight=False)
+    for i, (p99, count) in enumerate(ticks):
+        det.observe(float(i), {f"{DISPATCH_KEY}:p99": p99,
+                               f"{DISPATCH_KEY}:count": count})
+    return [a.to_dict() for a in det.anomalies]
+
+
+@pytest.mark.parametrize("case", ["quiet_then_one_more", "live_step"])
+def test_quantile_judged_only_on_new_observations(case):
+    """A histogram quantile whose count did not move repeats its last
+    value: the port skips that tick. A bucket served once and then idle
+    for 40 ticks (a clean card run's tail) made the JAX detector fire a
+    step at z in the thousands on a 0.5 % move; the port stays silent. A
+    series that takes observations every tick is judged as JAX judges
+    it, and its real step fires in both."""
+    if case == "quiet_then_one_more":
+        ticks = [(0.013019, 1)] * 40 + [(0.012959, 2), (0.012929, 3)]
+    else:
+        rnd = random.Random(5)
+        ticks = [(0.005 + rnd.gauss(0, 1e-4), 10 * (i + 1))
+                 for i in range(30)] + [(0.02, 310), (0.02, 320)]
+    got = _detections(anomaly, registry, ticks)
+    want = _detections(jax_anomaly, jax_registry, ticks)
+    if case == "quiet_then_one_more":
+        assert want and want[0]["detector"] == "step" \
+            and want[0]["score"] > 1000
+        assert got == []
+    else:
+        assert got == want and [a["detector"] for a in got] == ["step"]
+
+
 def _records(path):
     """A chunk's records without the sink's wall-clock ``time`` stamp."""
     with open(path) as f:

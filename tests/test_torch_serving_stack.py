@@ -512,6 +512,35 @@ def test_solo_lane_dispatches_strictly_alone():
         engine.close()
 
 
+@pytest.mark.parametrize("armed", [False, True])
+def test_warmup_stages_its_boards_when_the_sanitizer_is_armed(armed):
+    """Armed, the warm-up forwards take tensors staged at the declared
+    host-to-device point, as a live dispatch does: the sanitizer's sync
+    check is process-wide on a card, so a fleet respawn warming up beside
+    another engine's guarded dispatch must not copy from pageable memory.
+    Off, the boards pass through as numpy arrays."""
+    from deepgo_tpu_torch.analysis import cudacheck
+
+    kinds = []
+
+    def recording(params, packed, player, rank):
+        kinds.append({type(packed), type(player), type(rank)})
+        return np.zeros(len(packed), np.float32)
+
+    recording.device = torch.device("cpu")
+    cudacheck.enable(armed)
+    try:
+        engine = serving.InferenceEngine(recording, None,
+                                         serving.EngineConfig(buckets=(1, 8)))
+        try:
+            assert engine.warmup() == 2
+        finally:
+            engine.close()
+    finally:
+        cudacheck.enable(None)
+    assert kinds == [{torch.Tensor if armed else np.ndarray}] * 2
+
+
 def test_set_params_swaps_the_reference_only():
     seen = []
     entered, release = threading.Event(), threading.Event()
