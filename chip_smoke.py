@@ -202,8 +202,9 @@ then, each phase failing the run on the first disagreement:
    tolerance gate's forwards + the int8+sym replica's; the signal
    handlers come back. (c) ``selfplay --model full --fleet 2 --games 8
    --max-moves 60``: launches = engine forwards. (d) ``cost --model full
-   --json``: the ladder's FLOP count = ``analytic_flops``, the 989 TFLOP/s
-   table peak, one launch per priced entry. (e) ``lint`` over the
+   --json``: the ladder's FLOP count = ``analytic_flops`` of the rows it
+   convolves (at least 64 a rung on the card), the 989 TFLOP/s table
+   peak, one launch per priced entry. (e) ``lint`` over the
    checkout: no finding. (f) ``loop --windows 1 --actors 1`` from phase
    4's weights: acked = durable, launches = fleet + learner + gate
    forwards. (g) ``graft_entry.entry()``: its planes bitwise the plain
@@ -261,10 +262,31 @@ then, each phase failing the run on the first disagreement:
    checkpoint interval, the survivor's launches >= its steps). Each line:
    value > 0, no error, ``device`` the card's nvidia-smi line, every
    roofline MFU finite and <= 1.05; every request of a serving mode
-   resolved. Two errors are accepted in their exact shapes and printed
-   (``bench_error``, ROADMAP C7): the fleet plan's one typed
-   ``FailoverExhausted``, and the clean-run silence contract's step or
-   drift detections on the dispatch p99.
+   resolved. Then the campaign modes on ``small`` (the ladder 1-128):
+   ``search`` (4 concurrent searches of 96 simulations, then a replica
+   killed mid-search: the move lands), ``chaos`` (five campaigns: no
+   answer lost, no stale cache hit), ``mixed`` (sessions beside a bulk
+   scan on a (cuda, cpu) fleet, then a session child on the card
+   SIGKILLed after 9 acks: no acked move lost, the resumed games
+   bit-identical), each with launches > 0 and at most the forwards of
+   the card's engines; and last ``loop`` and ``loop --faults`` (``full``
+   bf16 at B = 256, 3 windows of 20 steps, deterministic kernels: no
+   game lost, every window replayed bitwise, the champion advanced; with
+   faults one kill per component class, no lock-order cycle, no transfer
+   finding; launches = learner steps + replayed steps + the gate's direct
+   forwards + the fleet's forwards, a killed window's rerun and a killed
+   engine's forwards allowed under faults). Errors are accepted only in
+   their exact shapes and printed (``bench_error``): the fleet plan's one
+   typed ``FailoverExhausted`` and the clean-run silence contract's step
+   or drift detections on the dispatch p99 (ROADMAP C7); the surge
+   campaign's answers that the CPU surge replica rounded otherwise than
+   the card (C10: each such board recomputed on both, outside rtol 1e-4
+   and within ``CROSS_RUNG_TOL``); the mixed leg's interactive SLO miss
+   and a scan the fleet absorbed without shedding, with every other
+   coexistence and crash-resume check through (C9), and one move whose
+   reply failed with a typed retriable error, printed with the fleet's
+   counters at that moment (C14); and a search kill
+   that missed the fleet while the move still landed in time (C13).
 
 ``--phases LIST`` (e.g. ``--phases 11``) runs only the listed phases of
 4-15 (and the phases their nets come from); 1-3 always run.
@@ -325,8 +347,9 @@ from deepgo_tpu_torch.loop import (ContinuousLearner, ExpertIterationLoop,
                                    replay_window)
 from deepgo_tpu_torch.loop import gatekeeper as loop_gatekeeper
 from deepgo_tpu_torch.models import convert, policy_cnn, quant, value_cnn
-from deepgo_tpu_torch.models.serving import (load_policy, load_value,
-                                             make_log_prob_fn, make_value_fn)
+from deepgo_tpu_torch.models.serving import (conv_rows, load_policy,
+                                             load_value, make_log_prob_fn,
+                                             make_value_fn)
 from deepgo_tpu_torch.obs import configure_flight
 from deepgo_tpu_torch.ops import _build, cuda_expand, expand_planes
 from deepgo_tpu_torch.ops import expand as plain_expand
@@ -368,13 +391,13 @@ BURSTS = (1, 5, 20, 100, 400, 3, 60, 250, 7, 30)
 THREADS = 8
 # A board's log-probs at one rung against the top rung, over points with
 # p >= 1e-3: cuDNN may choose a different convolution algorithm per batch
-# size (on an H100 it does for 8 or fewer boards through the convolutions:
-# rungs 1 and 8 of the plain forward, rung 1 of the 8-view one), and the
-# two round the bf16
-# logits differently, by up to about one bf16 spacing at the logits'
-# magnitude. Random He-normal weights give a nearly flat policy with logits
-# under 2 (spacing <= 2^-7). The same tolerance holds two variants' rows
-# against each other where cuDNN breaks the bitwise grid-net identities.
+# size (on an H100 it does below 64 rows; the plain forward convolves at
+# least 64, models/serving.CARD_MIN_ROWS, but the 8-view one not at rung
+# 1), and the two round the bf16 logits differently, by up to about one
+# bf16 spacing at the logits' magnitude. Random He-normal weights give a
+# nearly flat policy with logits under 2 (spacing <= 2^-7). The same
+# tolerance holds two variants' rows against each other where cuDNN breaks
+# the bitwise grid-net identities.
 CROSS_RUNG_TOL = 0.05
 # The grid net's N(0, 4) last-layer bias (largest |bias| 15.09 at SEED)
 # puts its larger logits in [8, 16), where bf16's spacing is 2^-4: two
@@ -499,10 +522,11 @@ ELASTIC_BEAT_S, ELASTIC_MISSES = 0.5, 10
 # Phase 12, observability and chaos. 12b's campaign mirrors the JAX
 # package's chaos bench: no supervisor restarts (a killed dispatcher
 # crosses into the fleet's failover and respawn), its SLO and backoffs.
-# Its fleets serve one rung: the port's bf16 rows are bitwise within a
-# rung but not across rungs (another batch size, another cuDNN algorithm;
-# ROADMAP C3), and the campaign holds every answer to its ground truth at
-# rtol 1e-4, which XLA's rung-invariant rows meet on the JAX package's.
+# Its fleets serve one rung, which dates from when the port's bf16 rows
+# differed across rungs (another batch size, another cuDNN algorithm;
+# repaired by the card forward's 64-row minimum, ROADMAP C11); the
+# campaign holds every answer to its ground truth at rtol 1e-4, which
+# XLA's rung-invariant rows meet on the JAX package's.
 OBS_TRAIN_STEPS = TRAIN_STEPS
 ATTRIBUTION_BAR = 0.95     # tests/test_attribution.py's bar
 FLOP_BAND = 0.05           # tests/test_costmodel.py's band
@@ -2355,6 +2379,8 @@ class GateDirectAgent(agents.PolicyAgent):
             GateDirectAgent.forwards += 1
             return predict(*a)
 
+        # the direct path stages its inputs on the forward's device
+        counted.device = getattr(predict, "device", None)
         self._predict = counted
 
 
@@ -3566,6 +3592,7 @@ def chaos_campaign(model, cfg, label, scenario, defended: bool,
         fleet=defended_config(base) if defended else base,
         supervisor=SupervisorConfig(**CHAOS_SUPERVISOR), cache=cache,
         device=DEVICE, name=label)
+    closed = False
     try:
         fleet.warmup()
         runner = CampaignRunner(fleet, trace, scenario,
@@ -3584,11 +3611,18 @@ def chaos_campaign(model, cfg, label, scenario, defended: bool,
             t0 = time.perf_counter()
             report = runner.run()
             seconds = time.perf_counter() - t0
+            lat = 1e3 * np.array(
+                list(fleet._tier_lat["interactive"])[marks["n"]:])
+            # a hedge's losing duplicate may still be in its forward when
+            # the run returns (counted, not yet launched): count once the
+            # fleet has drained and closed
+            fleet.close()
+            closed = True
             launches = cuda_expand.launches
             forwards = count.n
-        lat = 1e3 * np.array(list(fleet._tier_lat["interactive"])[marks["n"]:])
     finally:
-        fleet.close()
+        if not closed:
+            fleet.close()
         faults.reset()
     interactive = {"requests": int(lat.size),
                    "p50_ms": float(np.percentile(lat, 50)),
@@ -3844,12 +3878,13 @@ def run_cli(argv: list) -> str:
 
 class Scraper:
     """Polls an exporter's ``/metrics`` and ``/healthz`` on a thread while a
-    command runs: the samples of one metric and the health codes seen."""
+    command runs: the samples of one metric, the health codes seen and the
+    first bodies of unhealthy answers (for the failure message)."""
 
     def __init__(self, port: int, metric: str):
         self.url = f"http://127.0.0.1:{port}"
         self.metric = metric
-        self.values, self.codes = [], []
+        self.values, self.codes, self.unhealthy = [], [], []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="chip-smoke-scraper")
@@ -3873,7 +3908,10 @@ class Scraper:
                 value = parse_prometheus(text).get(self.metric)
                 if value is not None:
                     self.values.append(value)
-                self.codes.append(self._get("/healthz")[0])
+                code, body = self._get("/healthz")
+                self.codes.append(code)
+                if code != 200 and len(self.unhealthy) < 3:
+                    self.unhealthy.append(body[:3000])
             except OSError:
                 pass  # not up yet, or already closed
             self._stop.wait(SCRAPE_INTERVAL_S)
@@ -3927,7 +3965,8 @@ def cli_train_path(root: str) -> dict:
     check(counter_total("deepgo_train_steps_total") - steps0
           == CLI_TRAIN_STEPS, "cli train: the step counter counts the run")
     check(scrape.codes and set(scrape.codes) == {200},
-          f"cli train: /healthz codes {sorted(set(scrape.codes))}")
+          f"cli train: /healthz codes {sorted(set(scrape.codes))}: "
+          f"{scrape.unhealthy}")
 
     cuda_expand.reset_launches()
     text = run_cli(["eval", "--checkpoint", path, "--split", "validation",
@@ -4027,7 +4066,8 @@ def cli_serve_path(grid, tmp: str) -> dict:
     check(counter_total("deepgo_fleet_reloads_total", fleet="policy-fleet")
           - reloads0 == 1, "cli serve: deepgo_fleet_reloads_total += 1")
     check(scrape.codes and set(scrape.codes) == {200},
-          f"cli serve: /healthz codes {sorted(set(scrape.codes))}")
+          f"cli serve: /healthz codes {sorted(set(scrape.codes))}: "
+          f"{scrape.unhealthy}")
     check(launches == forwards[0] and sym == gate + forwards[1]
           and min(forwards) >= len(fleet.ladder.buckets),
           f"cli serve: expansion launches {launches} != the f32 replica's "
@@ -4082,9 +4122,12 @@ def cli_cost_path() -> dict:
     launches, sym = cuda_expand.launches, cuda_expand.sym_launches
     entries, peak = block["entries"], block["peak"]
     ladder = BucketLadder().buckets
+    # a card forward convolves at least CARD_MIN_ROWS rows (ROADMAP C11)
     check(all(entries[f"policy_forward/b{b}"]["flops"]
-              == costmodel.analytic_flops(cfg, b) for b in ladder),
-          "cli cost: the ladder's FLOP count == analytic_flops")
+              == costmodel.analytic_flops(cfg, conv_rows(b, DEVICE))
+              for b in ladder),
+          "cli cost: the ladder's FLOP count == analytic_flops of the rows "
+          "convolved")
     check(all(e["source"] == "flop_counter" for e in entries.values()),
           "cli cost: every row from the FLOP counter")
     check(peak["flops_per_s"] == 989e12 and peak["source"] == "table",
@@ -4622,7 +4665,17 @@ BENCH_MODES = (
     ("variant", ["--mode", "serving", "--variant", "int8+sym"]),
     ("trace", ["--mode", "serving", "--trace", "{capture}"]),
     ("distributed", ["--mode", "distributed", "--faults"]),
+    ("search", ["--mode", "search"]),
+    ("chaos", ["--mode", "chaos"]),
+    ("mixed", ["--mode", "mixed"]),
+    # last: the loop mode runs under deterministic kernels (restored after)
+    ("loop", ["--mode", "loop"]),
+    ("loop_faults", ["--mode", "loop", "--faults"]),
 )
+CAMPAIGN_MODES = ("search", "chaos", "mixed")   # lines with a chaos_gate
+LOOP_MODES = ("loop", "loop_faults")
+# the heterogeneous fleets' CPU surge replicas (platforms round-robin)
+CPU_REPLICAS = ("chaos-surge-1", "mixed-1")
 BENCH_CAPTURE = ("--requests", "512", "--games", "32",
                  "--opening-moves", "12", "--model", "full")
 BENCH_REQUESTS_PER_SUBMITTER = 128  # of the bench's 512 (depth only)
@@ -4668,11 +4721,44 @@ class EngineForwards:
         """The forwards of the engines closed in the block."""
         return sum(n for name, n in self.engines.values() if keep(name))
 
-    def started(self) -> int:
+    def started(self, keep=lambda name: True) -> int:
         """The forwards of every engine made in the block, closed or not:
         a forward is counted before it runs, so this bounds its launches
         from above."""
-        return sum(eng.stats()["forwards"] for eng in self._made)
+        return sum(eng.stats()["forwards"] for eng in self._made
+                   if keep(eng.name))
+
+
+class MoveFailures:
+    """Every exception a ``GameService.play`` call raised inside the
+    block, with the fleet's counters when it was raised, kept for
+    ``bench_error`` to name what failed a move (the bench line only counts
+    such moves)."""
+
+    def __enter__(self):
+        from deepgo_tpu_torch.sessions import service as service_mod
+
+        self.failures: list = []
+        self._cls = service_mod.GameService
+        self._play = play = self._cls.play
+        failures = self.failures
+
+        def keeping(svc, *args, **kwargs):
+            try:
+                return play(svc, *args, **kwargs)
+            except Exception as e:
+                try:
+                    fleet = svc.fleet.stats()["fleet"]
+                except Exception as s:  # noqa: BLE001 — evidence only
+                    fleet = {"error": repr(s)}
+                failures.append({"error": e, "fleet": fleet})
+                raise
+
+        self._cls.play = keeping
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.play = self._play
 
 
 def bench_line(text: str, label: str) -> dict:
@@ -4686,8 +4772,11 @@ def bench_run(label: str, argv: list, card: str, expect_exit: int = 0
               ) -> dict:
     """``bench.main(argv)`` in this process, with the launch counts zeroed
     just before it and read just after, each run on sanitizers of its own
-    (the JAX bench runs a mode a process)."""
+    (the JAX bench runs a mode a process). A chaos_gate line exits 1 when
+    its gate failed, 0 when it passed. In the loop modes the gate's direct
+    forwards are counted and the learner's window records kept."""
     from deepgo_tpu_torch import bench
+    from deepgo_tpu_torch import loop as loop_pkg
     from deepgo_tpu_torch.analysis import cudacheck, lockcheck
 
     saved = {k: os.environ.get(k) for k in (
@@ -4706,19 +4795,33 @@ def bench_run(label: str, argv: list, card: str, expect_exit: int = 0
     distributed = bench._bench_distributed
     bench._bench_distributed = lambda faults, device: distributed(
         faults, device, hosts_out=hosts)
+    windows: list = []
+    read_windows = loop_pkg.read_windows
+
+    def reading(run_dir):
+        windows[:] = read_windows(run_dir)
+        return windows
+
+    if label in LOOP_MODES:
+        loop_pkg.read_windows = reading
+        GateDirectAgent.forwards = 0
+        loop_gatekeeper.PolicyAgent = GateDirectAgent
     out = io.StringIO()
     code = 0
     priced = priced_steps()
     t0 = time.perf_counter()
     cuda_expand.reset_launches()
     try:
-        with EngineForwards() as engines, contextlib.redirect_stdout(out):
+        with EngineForwards() as engines, MoveFailures() as moves, \
+                contextlib.redirect_stdout(out):
             bench.main([*argv, "--device", DEVICE])
     except SystemExit as e:
         code = e.code or 0
     finally:
         launches, sym = cuda_expand.launches, cuda_expand.sym_launches
         bench._bench_distributed = distributed
+        loop_pkg.read_windows = read_windows
+        loop_gatekeeper.PolicyAgent = agents.PolicyAgent
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -4726,11 +4829,13 @@ def bench_run(label: str, argv: list, card: str, expect_exit: int = 0
                 os.environ[k] = v
     seconds = time.perf_counter() - t0
     line = bench_line(out.getvalue(), label)
+    if "chaos_gate" in line:
+        expect_exit = 0 if line["chaos_gate"]["pass"] else 1
     check(code == expect_exit, f"bench {label} exited {code}, not "
           f"{expect_exit}: {line.get('error')} {line.get('gate')}")
     check(line["value"] > 0 and "errors" not in line,
           f"bench {label}: value {line['value']}")
-    bench_error(label, line, flight)
+    bench_error(label, line, flight, moves.failures)
     suffix = " (2 simulated elastic hosts)" if label == "distributed" else ""
     check(line["device"] == card + suffix,
           f"bench {label}: device {line['device']!r}, not the card")
@@ -4738,13 +4843,15 @@ def bench_run(label: str, argv: list, card: str, expect_exit: int = 0
         "entries", {}).values() if e.get("mfu") is not None]
     check(all(math.isfinite(m) and 0 <= m <= BENCH_MFU_CAP for m in mfus),
           f"bench {label}: roofline MFU {mfus}")
-    check(bool(mfus) == (label not in ("latency", "distributed")),
+    check(bool(mfus) == (label not in ("latency", "distributed",
+                                       *CAMPAIGN_MODES, *LOOP_MODES)),
           f"bench {label}: {len(mfus)} roofline MFU entries")
     check((sym > 0) == (label == "variant"),
           f"bench {label}: {sym} sym kernel launches")
     return {"line": line, "launches": launches, "sym_launches": sym,
             "priced": priced_steps() - priced, "engines": engines,
-            "hosts": hosts, "seconds": seconds}
+            "hosts": hosts, "seconds": seconds, "windows": windows,
+            "gate_direct": GateDirectAgent.forwards}
 
 
 CLEAN_ANOMALY_ERROR = re.compile(
@@ -4754,11 +4861,35 @@ FAILOVER_EXHAUSTED_ERROR = re.compile(
     r"^FailoverExhausted: FleetRouter\[bench-fleet\] request failed over "
     r"\d+ time\(s\) and no healthy replica remains$")
 DISPATCH_P99 = "deepgo_serving_dispatch_seconds"
+SURGE_WRONG = re.compile(
+    r"^surge: \d+ wrong / 0 lost answer\(s\) on the heterogeneous fleet$")
+MIXED_SLO_MISS = re.compile(
+    r"^coexistence: interactive SLO missed — \d+\.\d+% within 0\.15s "
+    r"\(target 95%\) while batch saturated$")
+MIXED_NEVER_SHED = ("coexistence: the batch tier never shed — the scan did "
+                    "not actually saturate")
+MIXED_ONE_MOVE_FAILED = ("coexistence: 1 interactive move(s) failed "
+                         "outright under transient chaos")
+# the typed, retriable errors a move's engine reply surfaces when the
+# fleet's defences are spent: every deadline tier (ReplyExhausted) or the
+# request's failover budget (FailoverExhausted)
+MOVE_FAILURE_TYPES = ("ReplyExhausted", "FailoverExhausted")
+SEARCH_KILL_MISSED = (
+    "chaos: the kill event never fired",
+    "chaos: the kill fired but neither failover nor respawn engaged — the "
+    "fault missed the fleet")
 
 
-def bench_error(label: str, line: dict, flight: str) -> None:
-    """No ``error`` in the line, but for two documented ones (PERF.md,
-    ROADMAP C7), each held to its exact shape:
+def bench_error(label: str, line: dict, flight: str,
+                moves: list = ()) -> None:
+    """No ``error`` in the line, but for documented ones (PERF.md, ROADMAP
+    C7, C9, C10, C13, C14), each held to its exact shape: ``chaos``' surge
+    rounding (``surge_rounding``), ``mixed``'s interactive SLO miss, an
+    unsaturated scan and one move whose reply failed typed (``moves``: the
+    exceptions ``MoveFailures`` kept) with every other check through,
+    ``search``'s kill
+    that missed the fleet with the move landed in time, and the serving
+    modes' two below.
 
     * ``fleet_faults``: the JAX bench's default fleet plan
       (``fleet_route:transient@2``) can put both transient route faults on
@@ -4787,6 +4918,41 @@ def bench_error(label: str, line: dict, flight: str) -> None:
               f"{anomalies.get('count')} anomalies")
         print(f"bench {label}: accepted (C7): {error}", flush=True)
         return
+    if label == "chaos":
+        surge_rounding(line)
+        return
+    if label == "mixed":
+        reasons = line["chaos_gate"]["reasons"]
+        inter = line["interactive"]
+        failed = [{"error": repr(m["error"]),
+                   "cause": repr(m["error"].__cause__),
+                   "fleet": m["fleet"]} for m in moves]
+        # C14: at most one move, failed by a typed retriable error
+        check(reasons and all(MIXED_SLO_MISS.match(r) or r == MIXED_NEVER_SHED
+                              or r == MIXED_ONE_MOVE_FAILED for r in reasons)
+              and inter["errors"] == len(moves) <= 1
+              and all(type(m["error"]).__name__ in MOVE_FAILURE_TYPES
+                      for m in moves),
+              f"bench mixed: {reasons}; failed moves {failed}")
+        print("bench mixed: accepted (C9" + (", C14" if moves else "")
+              + "): " + "; ".join(reasons) + "; interactive "
+              + json.dumps(inter) + ", scan "
+              + json.dumps(line["analysis"]["outcomes"]) + ", surge cpu "
+              f"boards {line['surge_cpu_boards']}"
+              + (", failed moves " + json.dumps(failed, default=str)
+                 if moves else ""), flush=True)
+        return
+    if label == "search":
+        reasons = line["chaos_gate"]["reasons"]
+        chaos = line["chaos"]
+        check(len(reasons) == 1 and reasons[0] in SEARCH_KILL_MISSED
+              and chaos["move_lost"] == 0 and chaos["deadline_met"]
+              and not chaos["fallback"], f"bench search: {reasons}")
+        print(f"bench search: accepted (C13): {reasons[0]}; the chaos leg "
+              + json.dumps({k: chaos[k] for k in (
+                  "move", "simulations", "lost_simulations", "wall_s",
+                  "failovers", "respawns")}), flush=True)
+        return
     check(label in ("serving", "variant") and bool(
         CLEAN_ANOMALY_ERROR.match(error)), f"bench {label}: error {error!r}")
     events, path = [], os.path.join(flight, "trace.jsonl")
@@ -4807,6 +4973,58 @@ def bench_error(label: str, line: dict, flight: str) -> None:
           f"of a dispatch p99: " + json.dumps(
               [{k: e[k] for k in ("series", "detector", "value", "baseline",
                                   "score")} for e in events]), flush=True)
+
+
+def surge_rounding(line: dict) -> None:
+    """The chaos line's one accepted breach (ROADMAP C10): answers of the
+    surge leg's CPU replica outside rtol 1e-4 of the ground truth, which
+    the card replica gave. Accepted only when it is the gate's one reason,
+    no leg lost an answer, the integrity guard saw no corrupt row, the
+    wrong answers are no more than the CPU replica served, and each wrong
+    board, recomputed here on the card and on the CPU, differs by
+    rounding: outside rtol 1e-4 and within ``CROSS_RUNG_TOL``."""
+    from deepgo_tpu_torch import bench
+    from deepgo_tpu_torch.serving import replay as replay_mod
+    from deepgo_tpu_torch.utils.digest import exact_digest
+
+    reasons = line["chaos_gate"]["reasons"]
+    surge = line["chaos"]["surge"]
+    cpu_boards = sum(r["boards"] or 0 for r in surge["replicas"]
+                     if r["platform"] == "cpu")
+    check(len(reasons) == 1 and SURGE_WRONG.match(reasons[0])
+          and surge["counters"]["integrity_failures"] == 0
+          and 0 < surge["answers"]["wrong"] <= cpu_boards,
+          f"bench chaos: {reasons}, surge {surge['answers']} "
+          f"{surge['counters']}, cpu boards {cpu_boards}")
+    trace = replay_mod.build_synthetic_requests(
+        os.path.join(SGF_DIR, "test"), requests=200, games=16,
+        opening_moves=10, rate_per_s=45.0, seed=11)
+    boards = {exact_digest(it["packed"], it["player"], it["rank"]): it
+              for it in trace}
+    wrong = sorted({w["digest"] for w in surge["answers"]["wrong_detail"]})
+    items = [boards[d] for d in wrong]
+    packed = np.stack([it["packed"] for it in items])
+    player = np.array([it["player"] for it in items], dtype=np.int32)
+    rank = np.array([it["rank"] for it in items], dtype=np.int32)
+    name, _ = bench.CHAOS_SIZES["cuda"]
+    cfg = policy_cnn.CONFIGS[name]
+    rows = {}
+    for dev in (DEVICE, "cpu"):
+        model = bench._init_params(cfg, torch.device(dev))
+        rows[dev] = make_log_prob_fn(cfg, dev)(model, packed, player, rank)
+    evidence = []
+    for i, digest in enumerate(wrong):
+        card, cpu = rows[DEVICE][i], rows["cpu"][i]
+        evidence.append({
+            "digest": digest, "max_abs": float(np.abs(card - cpu).max()),
+            "close_rtol_1e-4": bool(np.allclose(card, cpu, rtol=1e-4,
+                                                atol=1e-5))})
+    check(all(not e["close_rtol_1e-4"] and e["max_abs"] <= CROSS_RUNG_TOL
+              for e in evidence),
+          f"bench chaos: the surge's wrong boards, card vs cpu: {evidence}")
+    print(f"bench chaos: accepted (C10): {reasons[0]}; cpu replica served "
+          f"{cpu_boards} boards; each wrong board card vs cpu: "
+          + json.dumps(evidence), flush=True)
 
 
 def c7_evidence(label: str, ts_dir: str, events: list) -> None:
@@ -4887,6 +5105,31 @@ def check_bench_launches(label: str, run: dict) -> int:
             errors and launches >= steps + run["priced"]),
               f"bench {label}: {launches} launches != {steps} steps + "
               f"{run['priced']} priced")
+    elif label in CAMPAIGN_MODES:
+        # the card's replicas only (the CPU surge replicas run the plain
+        # expansion; mixed's session children count in their processes):
+        # at most every forward of every card engine started
+        started = eng.started(lambda n: n not in CPU_REPLICAS)
+        check(0 < launches <= started, f"bench {label}: {launches} launches "
+              f"outside (0, {started} forwards of the card's engines]")
+    elif label in LOOP_MODES:
+        spw = bench.LOOP_SIZES["cuda"][0]["steps_per_window"]
+        steps = line["learner_step"] + line["windows_replayed"] * spw
+        certain = steps + run["gate_direct"]
+        if label == "loop":
+            want = certain + eng.started()
+            check(launches == want, f"bench loop: {launches} launches != "
+                  f"{steps} learner and replayed steps + "
+                  f"{run['gate_direct']} gate forwards + {eng.started()} "
+                  "fleet forwards")
+        else:
+            # the killed window's steps run again, and an injected fault
+            # may stop a counted forward before its launch: more than the
+            # steps and gate forwards, at most those + a window + every
+            # forward of every engine started
+            top = certain + spw + eng.started()
+            check(certain < launches <= top, f"bench loop_faults: "
+                  f"{launches} launches outside ({certain}, {top}]")
     elif label == "distributed":
         (rc, out, err), _ = run["hosts"]
         done = tagged(out, "ELASTIC_DONE")
@@ -4947,6 +5190,46 @@ def check_bench_mode(label: str, line: dict) -> None:
         check(line["outcomes"].get("ok") == line["submitted"]
               and line["replay"]["fidelity_ok"],
               f"bench trace: outcomes {line['outcomes']}")
+    if label == "search":
+        clean, chaos = line["clean"], line["chaos"]
+        check(len(clean["moves"]) == clean["searches"] and clean["lost"] == 0
+              and chaos["move_lost"] == 0 and chaos["move"] >= 0,
+              f"bench search: clean {clean['moves']} lost {clean['lost']}, "
+              f"chaos move {chaos['move']}")
+    if label == "chaos":
+        for leg, r in line["chaos"].items():
+            # the surge leg's wrong answers are bench_error's (C10)
+            check(r["answers"]["lost"] == 0
+                  and (leg == "surge" or r["answers"]["wrong"] == 0),
+                  f"bench chaos {leg}: answers {r['answers']}")
+        check(line["chaos"]["cache_reload"]["cache"]["stale_hits"] == 0,
+              "bench chaos: a stale cache hit")
+    if label == "mixed":
+        crash = line["crash_resume"]
+        # a failed interactive move is bench_error's (C14)
+        check(crash["lost_acked"] == 0 and crash["bit_identical"]
+              and crash["victim_rc"] == -9,
+              f"bench mixed: crash_resume {crash}, interactive "
+              f"{line['interactive']}")
+    if label in LOOP_MODES:
+        check(line["games_lost"] == 0 and line["resume_bitexact"]
+              and line["windows"] == line["windows_replayed"] == 3
+              and line["champion_newer"],
+              f"bench {label}: lost {line['games_lost']}, bitexact "
+              f"{line['resume_bitexact']}, windows {line['windows']}")
+    if label == "loop_faults":
+        # one restart per injected kill: a sync beside a guarded dispatch
+        # in a component's thread would raise there and show as more
+        restarts = line["component_restarts"]
+        kinds = {name.split("-")[0] for name in restarts}
+        check(line["lockcheck"]["cycles"] == 0
+              and line["xlacheck"]["transfer_violations"] == 0
+              and kinds == {"actor", "learner", "gatekeeper"}
+              and sorted(restarts.values()) == [1, 1, 1]
+              and line["fleet_respawns"] >= 1,
+              f"bench loop_faults: {line['lockcheck']} {line['xlacheck']} "
+              f"restarts {line['component_restarts']}, respawns "
+              f"{line['fleet_respawns']}")
 
 
 def bench_cli_contract(tmp: str, card: str) -> dict:
@@ -4994,6 +5277,7 @@ def phase_bench(requests: int = BENCH_REQUESTS_PER_SUBMITTER) -> dict:
     bench.SERVING_SIZES = {**saved_sizes, "cuda": (
         name, submitters, requests, ladder)}
     out, t = {"launches": {}, "sym_launches": {}}, {}
+    learner_ms: dict = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-bench-") as tmp:
         os.environ.update(BENCH_PREFLIGHT="0", BENCH_WATCHDOG="0",
                           DEEPGO_FLIGHT_DIR=tmp)
@@ -5043,6 +5327,10 @@ def phase_bench(requests: int = BENCH_REQUESTS_PER_SUBMITTER) -> dict:
                         out["sym_launches"]["bench_variant_int8_sym"] = \
                             run["sym_launches"]
                     runs[label] = run["line"]
+                    if label in LOOP_MODES:
+                        spw = bench.LOOP_SIZES["cuda"][0]["steps_per_window"]
+                        learner_ms[label] = [1e3 * w["seconds"] / spw
+                                             for w in run["windows"]]
                 except RuntimeError as e:
                     print(f"bench {label}: FAILED {e}", flush=True)
                     failures.append(str(e))
@@ -5057,7 +5345,7 @@ def phase_bench(requests: int = BENCH_REQUESTS_PER_SUBMITTER) -> dict:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    out["numbers"] = bench_numbers(runs)
+    out["numbers"] = bench_numbers(runs, learner_ms)
     out["seconds"] = time.perf_counter() - t0
     out["sub_seconds"] = t
     print(f"phase 15: {out['seconds']:.2f} s " + json.dumps(t), flush=True)
@@ -5065,8 +5353,9 @@ def phase_bench(requests: int = BENCH_REQUESTS_PER_SUBMITTER) -> dict:
     return out
 
 
-def bench_numbers(runs: dict) -> dict:
-    """The numbers PERF.md keeps from each bench line."""
+def bench_numbers(runs: dict, learner_ms: dict) -> dict:
+    """The numbers PERF.md keeps from each bench line (and the loop
+    learner's ms a step, window by window, under deterministic kernels)."""
     def mfu(line):
         return {k: e["mfu"] for k, e in line["roofline"]["entries"].items()
                 if e.get("mfu") is not None}
@@ -5108,6 +5397,39 @@ def bench_numbers(runs: dict) -> dict:
         "distributed": {k: dist[k] for k in (
             "value", "detect_latency_s", "steps_lost", "tp_from", "tp_to",
             "final_step", "survivor_samples_per_sec")},
+    } | campaign_numbers(runs, learner_ms)
+
+
+def campaign_numbers(runs: dict, learner_ms: dict) -> dict:
+    """The search, chaos, mixed and loop modes' numbers for PERF.md."""
+    search, chaos, mixed = runs["search"], runs["chaos"], runs["mixed"]
+    legs = {leg: {"good_frac": r["slo"]["good_frac"], "ok": r["slo"]["ok"],
+                  "wrong": r["answers"]["wrong"], "lost": r["answers"]["lost"],
+                  **{k: r["counters"][k] for k in (
+                      "failovers", "respawns", "hedges", "ejections",
+                      "integrity_failures")}}
+            for leg, r in chaos["chaos"].items()}
+    return {
+        "search": {
+            "value": search["value"],
+            "clean": {k: search["clean"][k] for k in (
+                "simulations", "wall_s", "wave_occupancy")}
+            | {"hit_rate": search["clean"]["transposition"]["hit_rate"]},
+            "chaos": {k: search["chaos"][k] for k in (
+                "move_lost", "simulations", "lost_simulations", "wall_s",
+                "failovers", "respawns")}},
+        "chaos": {"value": chaos["value"], **legs},
+        "mixed": {"value": mixed["value"],
+                  "interactive": mixed["interactive"],
+                  "scan": mixed["analysis"]["outcomes"],
+                  "surge_cpu_boards": mixed["surge_cpu_boards"],
+                  "crash_resume": {k: mixed["crash_resume"][k] for k in (
+                      "victim_acks", "lost_acked", "bit_identical")}},
+        "loop": {label: {k: runs[label][k] for k in (
+            "value", "seconds", "games_acked", "windows", "gates_passed",
+            "learner_step", "component_restarts", "fleet_respawns",
+            "fleet_failovers")} | {"learner_ms_per_step": learner_ms.get(
+                label)} for label in LOOP_MODES},
     }
 
 
@@ -5166,6 +5488,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; it needs one CUDA card",
               file=sys.stderr)
         return 1
+    # phase 15's loop modes turn deterministic kernels on in this process
+    # (bench.main), and cuBLAS reads its workspace setting when it first
+    # runs
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if sys.argv[1:2] == ["--deterministic"] and len(sys.argv) == 3:
         return deterministic_main(sys.argv[2])
     if sys.argv[1:2] == ["--loop-learner"] and len(sys.argv) == 3:

@@ -38,8 +38,9 @@ paths pay one attribute check per engine dispatch by default. The sync
 check is process-wide: a guard arms it for every thread until the last
 open guard closes (the first restores the previous mode, even when the
 body raised), so arm the sanitizer in a process whose CUDA work is the
-guarded engines'; their staged inputs and declared outputs never
-synchronise.
+guarded engines' or goes through the declared points: the engines' staged
+inputs and outputs, and :func:`place` / :func:`stage_d2h` for the threads
+that copy beside them (a loop's learner and gate), never synchronise.
 """
 
 from __future__ import annotations
@@ -403,6 +404,27 @@ def stage_h2d(*values, device=None):
                 v = v.to(device)
         out.append(v)
     return tuple(out)
+
+
+def place(value, device):
+    """``value`` (a tensor, a numpy array or a module) on ``device``:
+    ``.to(device)`` when the sanitizer is off or off the card. Armed on a
+    card, every host tensor moves through :func:`stage_h2d`'s pinned copy,
+    which does not synchronise: the declared host-to-device point for
+    threads that copy beside guarded dispatches (a learner's batches and
+    checkpoints, a gate's models and direct forwards)."""
+    import torch
+
+    device = torch.device(device)
+    if isinstance(value, np.ndarray):
+        # ascontiguousarray makes a 0-d array 1-d: keep the shape
+        value = torch.from_numpy(
+            np.ascontiguousarray(value).reshape(value.shape))
+    if not enabled() or device.type != "cuda":
+        return value.to(device)
+    if isinstance(value, torch.nn.Module):
+        return value._apply(lambda t: stage_h2d(t, device=device)[0])
+    return stage_h2d(value, device=device)[0]
 
 
 def stage_d2h(tensor) -> np.ndarray:

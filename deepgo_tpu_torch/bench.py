@@ -1,5 +1,6 @@
-"""The port's benchmarks: policy inference, latency, training and serving
-on one CUDA card, and two-host elastic training.
+"""The port's benchmarks: policy inference, latency, training, serving,
+the expert-iteration loop, search, sessions and chaos campaigns on one
+CUDA card, and two-host elastic training.
 
 The port of the repository's ``bench.py`` (the JAX package's benchmark),
 mode for mode, with its function names, metric names, units and result
@@ -38,15 +39,34 @@ Modes, each one JSON line:
                    directory; with ``--faults`` the victim is SIGKILLed and
                    the line reports the survivor's recovery latency and
                    steps lost, without it the clean run's samples/s.
+  loop             games/hour of a complete expert-iteration loop (actors
+                   over a 2-replica fleet, learner windows, arena gates)
+                   for three windows, with games lost, the windows'
+                   bit-exact offline replay and champion freshness; with
+                   ``--faults`` one kill per component class under the
+                   lock-order and transfer sanitizers. Deterministic
+                   kernels are on for this mode.
+  search           simulations/s of 4 concurrent PUCT searches sharing one
+                   transposition table over a 2-replica fleet, then a
+                   replica killed mid-search: the move must still land.
+  mixed            the interactive tier's share within a 0.15 s SLO while
+                   3 live sessions and a bulk SGF scan share a (card, cpu)
+                   fleet under WAL and reply faults, then a session child
+                   SIGKILLed after 9 acks: no acked move lost, the resumed
+                   games bit-identical to an uninterrupted run.
+  chaos            five seeded campaigns over one trace (acceptance,
+                   brownout with and without the defenses, cache + reload,
+                   card replica lost to a cpu surge replica); the value is
+                   the defended brownout's share within the SLO.
   --gate [T]       regression gate against the last-good record of the same
                    metric and device; exits nonzero past T (default 0.10).
-
-``loop``, ``search``, ``mixed`` and ``chaos`` wait for a later slice
-(ROADMAP A11.2).
+                   ``search``, ``mixed`` and ``chaos`` hold their
+                   ``chaos_gate`` verdict with or without it.
 
 The sizes: ``--device cuda`` (the default) runs the card sizes, which the
-JAX bench runs on the TPU; ``--device cpu`` runs the JAX bench's CPU sizes
-and exists for the tests. The ``device`` field names the card and its power
+JAX bench runs on the TPU (but ``loop`` and ``distributed``, whose JAX
+sizes are a 2 x 8 toy net, train ``full`` on the card); ``--device cpu``
+runs the JAX bench's CPU sizes and exists for the tests. The ``device`` field names the card and its power
 limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 
 Two deliberate differences from the JAX bench:
@@ -76,6 +96,7 @@ FLOP/s and MFU against the card's table peak.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -117,7 +138,8 @@ _METRIC_OF = {
     "search": ("search_simulations_per_sec", "simulations/sec"),
 }
 
-MODES = ("inference", "train", "latency", "large", "serving", "distributed")
+MODES = ("inference", "train", "latency", "large", "serving", "distributed",
+         "loop", "chaos", "mixed", "search")
 
 # sizes per device type: "cuda" the card's (the JAX bench's TPU sizes),
 # "cpu" the JAX bench's CPU sizes
@@ -130,6 +152,32 @@ LATENCY_SIZES = {"cuda": ((64, 256, 1024), 50), "cpu": ((16,), 5)}
 # config, submitters, requests a submitter, ladder
 SERVING_SIZES = {"cuda": ("full", 32, 512, (1, 8, 32, 128, 512)),
                  "cpu": ("small", 4, 32, (1, 8, 32))}
+# the campaign fleets of chaos, mixed and search: config, ladder (and for
+# search the simulations a search and the chaos leg's deadline, s). The
+# card serves the reference's own default network, ``small`` (3 x 64) at
+# its full width, on the JAX bench's TPU ladder and budgets.
+CHAOS_SIZES = {"cuda": ("small", (1, 8, 32, 128)),
+               "cpu": ("small", (1, 8, 32))}
+MIXED_SIZES = {"cuda": ("small", (1, 8, 32, 128)),
+               "cpu": ("small", (1, 8, 32))}
+SEARCH_SIZES = {"cuda": ("small", (1, 8, 32, 128), 96, 60.0),
+                "cpu": ("small", (1, 8, 32), 48, 120.0)}
+# the loop: (LoopConfig fields, learner ExperimentConfig fields). The CPU
+# keeps the JAX bench's sizes, which it runs on every device: a 2 x 8
+# learner and 3-game rounds of 24 moves. A 2 x 8 net is no model of the
+# repository, so the card trains the flagship ``full`` (12 x 128, bf16) at
+# B = 256 and rate 0.005, in windows of 8-game rounds of up to 60 moves,
+# 20 steps over at least 512 positions and 8 gate games (chip_smoke.py
+# phase 10a's shape), as --mode distributed does with DIST_SIZES.
+LOOP_SIZES = {
+    "cuda": (dict(games_per_round=8, max_moves=60, steps_per_window=20,
+                  min_window_positions=512, gate_games=8),
+             dict(num_layers=12, channels=128, batch_size=256, rate=0.005)),
+    "cpu": (dict(games_per_round=3, max_moves=24, steps_per_window=6,
+                 min_window_positions=48, gate_games=4),
+            dict(num_layers=2, channels=8, batch_size=8, rate=0.05)),
+}
+LOOP_WINDOWS = 3
 
 
 def _on_card(device: torch.device) -> bool:
@@ -714,8 +762,8 @@ DEFAULT_DIST_FAULTS = "kill:step@7"
 # checkpoints — so the gate fold allows one window of slack vs baseline
 DIST_CKPT_INTERVAL = 20
 
-# the JAX bench's loop-mode chaos plan (the loop mode is not ported yet;
-# the spec is kept with the others)
+# default --mode loop chaos: one kill per loop component class (an actor
+# via loop_ingest, the learner mid-window, the gate, a fleet replica)
 DEFAULT_LOOP_FAULTS = ("loop_ingest:fail@2,train_step:fail@6,"
                        "loop_gate:fail@1,serving_dispatch:fail@8")
 
@@ -875,6 +923,817 @@ def _bench_distributed(faults_spec: str | None = None,
         }
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sanitizer_reports() -> tuple[dict | None, dict | None]:
+    """The ``lockcheck`` and ``xlacheck`` blocks of a chaos run (None for
+    a checker that is off); lock-order cycles and recompile storms are
+    printed to stderr."""
+    from .analysis import cudacheck, lockcheck
+
+    lock = xla = None
+    if lockcheck.enabled():
+        lrep = lockcheck.report()
+        lock = {"locks": len(lrep["locks"]), "cycles": len(lrep["cycles"]),
+                "hazards": len(lrep["hazards"])}
+        for cyc in lrep["cycles"]:
+            print(f"bench: LOCK ORDER CYCLE {' -> '.join(cyc['cycle'])}",
+                  file=sys.stderr, flush=True)
+    if cudacheck.enabled():
+        xrep = cudacheck.report()
+        xla = {
+            "watched": len(xrep["watched"]),
+            "steady_state_compiles": xrep["steady_state_compiles"],
+            "transfer_violations": len(xrep["transfers"]),
+            "sharding_mismatches": len(xrep["sharding"]),
+        }
+        for storm in xrep["storms"]:
+            print(f"bench: RECOMPILE STORM {storm['fn']} shapes "
+                  f"{storm['shapes']}", file=sys.stderr, flush=True)
+    return lock, xla
+
+
+def _bench_loop(device: torch.device, faults_spec: str | None = None
+                ) -> dict:
+    """The expert-iteration loop soak (``loop/``): a complete in-process
+    loop on ``device``, selfplay actors over a 2-replica fleet, replay
+    ingestion, windowed continuous learning and arena gates with champion
+    reload, for LOOP_WINDOWS windows; the value is games/hour. With
+    ``faults_spec`` it is the chaos soak (the default kills one of each
+    component class, the replicas with zero restarts), and the line
+    carries the three acceptance facts, measured:
+
+      * ``games_lost``       acked by actors minus durable on disk, 0;
+      * ``resume_bitexact``  every window's params digest recomputed
+                             offline from its start checkpoint and
+                             recorded extent (``replay_window``) equals
+                             the live one, the killed window's included;
+      * ``champion_newer``   the served champion's step advanced past the
+                             seed through a real gate pass.
+
+    Gate threshold 0: the soak proves the plumbing under fire, not Go
+    strength. On the card the windows are bitwise only with deterministic
+    kernels, which ``main`` turns on for this mode before CUDA starts."""
+    import shutil
+    import tempfile
+
+    from .experiments import ExperimentConfig
+    from .loop import (ExpertIterationLoop, LoopConfig, read_windows,
+                       replay_window)
+
+    if faults_spec:
+        from .utils import faults as faults_mod
+
+        faults_mod.install(faults_spec)
+        # the chaos soak is a race hunt and a transfer audit too
+        os.environ.setdefault("DEEPGO_LOCKCHECK", "1")
+        os.environ.setdefault("DEEPGO_XLACHECK", "1")
+    windows = LOOP_WINDOWS
+    loop_sizes, learner_sizes = LOOP_SIZES[device.type]
+    cfg = LoopConfig(
+        actors=2, fleet=2, temperature=0.5, segment_games=3,
+        gate_threshold=0.0, windows=windows, stall_timeout_s=300.0,
+        max_component_restarts=8,
+        replica_max_restarts=0 if faults_spec else None,
+        # the chaos soak doubles as the telemetry acceptance run: the
+        # component kills must surface as typed anomaly events
+        telemetry=bool(faults_spec), telemetry_interval_s=0.2,
+        **loop_sizes)
+    lcfg = ExperimentConfig(name="loop-bench", **learner_sizes)
+    tmp = tempfile.mkdtemp(prefix="deepgo-loop-bench-")
+    try:
+        run_dir = os.path.join(tmp, "run")
+        loop = ExpertIterationLoop(run_dir, cfg, lcfg, device=device)
+        seed_step = 0
+        t0 = time.time()
+        summary = loop.run()
+        dt = time.time() - t0
+        # the offline witness: every window's digest re-derived from its
+        # start checkpoint and recorded extent; the window the learner
+        # kill landed in proves the cursor-pinned resume bit-exact
+        learner_dir = os.path.join(run_dir, "learner")
+        records = read_windows(learner_dir)
+        mismatches = [rec["window"] for rec in records
+                      if replay_window(learner_dir, loop.buffer, rec,
+                                       device=device) != rec["digest"]]
+        games = summary["games_acked"]
+        lost = games - summary["games_durable"]
+        champion_step = summary.get("champion_step") or 0
+        result = {
+            "metric": _METRIC_OF["loop"][0],
+            "value": round(games / dt * 3600, 1),
+            "unit": _METRIC_OF["loop"][1],
+            "vs_baseline": None,
+            "windows": summary["windows_trained"],
+            "games_acked": games,
+            "games_durable": summary["games_durable"],
+            "games_lost": lost,
+            "gates_passed": summary["gates_passed"],
+            "gates_rejected": summary["gates_rejected"],
+            "learner_step": summary["learner_step"],
+            "champion_step": champion_step,
+            "seed_step": seed_step,
+            "champion_newer": champion_step > seed_step,
+            "resume_bitexact": not mismatches,
+            "windows_replayed": len(records),
+            "component_restarts": summary["component_restarts"],
+            "fleet_respawns": summary["fleet_respawns"],
+            "fleet_failovers": summary["fleet_failovers"],
+            "fleet_reloads": summary["fleet_reloads"],
+            "seconds": round(dt, 2),
+        }
+        if summary.get("anomalies") is not None:
+            result["anomalies"] = summary["anomalies"]
+        lock, xla = _sanitizer_reports()
+        if lock is not None:
+            result["lockcheck"] = lock
+        if xla is not None:
+            result["xlacheck"] = xla
+        if faults_spec:
+            result["faults"] = faults_spec
+        errors = []
+        if (lock or {}).get("cycles"):
+            errors.append(f"{lock['cycles']} lock-order cycle(s) detected")
+        xla = xla or {}
+        if xla.get("steady_state_compiles"):
+            errors.append(f"{xla['steady_state_compiles']} steady-state "
+                          "compile(s) post-warmup")
+        if xla.get("transfer_violations") or xla.get("sharding_mismatches"):
+            errors.append("xlacheck transfer/sharding finding(s): "
+                          f"{xla['transfer_violations']} transfer, "
+                          f"{xla['sharding_mismatches']} sharding")
+        if lost != 0:
+            errors.append(f"{lost} acked game(s) not durable")
+        if mismatches:
+            errors.append(f"window digests diverged: {mismatches}")
+        if summary["windows_trained"] < windows:
+            errors.append(
+                f"only {summary['windows_trained']}/{windows} windows "
+                f"trained (fatal: {summary['fatal']})")
+        if not result["champion_newer"]:
+            errors.append("served champion never advanced past the seed")
+        if faults_spec and not result.get("anomalies", {}).get("count"):
+            errors.append("chaos kills produced no telemetry anomaly")
+        if errors:
+            result["error"] = "; ".join(errors)
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _campaign_fleet(params, cfg, buckets, name: str, device, **kw):
+    """The campaign modes' 2-replica fleet: no supervisor restarts, so an
+    injected dispatcher kill crosses into the fleet's failover and
+    respawn, as with --fleet."""
+    from .serving import (EngineConfig, SupervisorConfig,
+                          fleet_policy_engine)
+
+    return fleet_policy_engine(
+        params, cfg, replicas=2,
+        config=EngineConfig(buckets=buckets, max_wait_ms=2.0),
+        supervisor=SupervisorConfig(max_restarts=0, backoff_base_s=0.01,
+                                    backoff_cap_s=0.05),
+        name=name, device=device, **kw)
+
+
+def _bench_chaos(device: torch.device, trace_capture: str | None = None,
+                 replay_speed: float = 1.0) -> dict:
+    """The chaos campaign gate (``chaos/``): five seeded campaigns over ONE
+    opening-heavy trace, each against a fresh 2-replica fleet.
+
+      acceptance    kill + brownout + output corruption mid-trace with
+                    every defense armed: zero lost futures and zero wrong
+                    answers, the corrupt replica canary-detected and
+                    recycled
+      brownout ON   hedging + ejection armed: the interactive SLO must
+                    HOLD through the brownout
+      brownout OFF  the same attack, defenses disarmed: the SLO must FAIL,
+                    so the defenses, not the fleet's slack, carry the
+                    verdict
+      cache_reload  the position cache armed, a rolling same-value reload
+                    mid-trace, then a replica kill: every served answer
+                    matches ground truth and no stale hit is served
+      surge         a heterogeneous (card, cpu) fleet loses its card
+                    replica mid-trace: the cpu surge replica must already
+                    serve batch traffic and then absorb everything
+
+    The value is the ON arm's within-threshold fraction; ``chaos`` holds
+    every leg; ``chaos_gate`` fails (and the exit code is 1) when any leg
+    breaks. On ``--device cpu`` the surge fleet is (cpu, cpu)."""
+    from .chaos import (CampaignConfig, CampaignRunner, FaultEvent,
+                        Scenario, acceptance_scenario, brownout_scenario,
+                        defended_config)
+    from .serving import CacheConfig, FleetConfig
+    from .serving import replay as replay_mod
+
+    name, buckets = CHAOS_SIZES[device.type]
+    cfg = policy_cnn.CONFIGS[name]
+    params = _init_params(cfg, device)
+    if trace_capture:
+        trace = replay_mod.load_trace(trace_capture)
+    else:
+        trace = replay_mod.build_synthetic_requests(
+            os.path.join(_REPO, "data", "sgf", "test"),
+            requests=200, games=16, opening_moves=10, rate_per_s=45.0,
+            seed=11)
+    span_s = ((trace[-1]["t"] - trace[0]["t"]) / replay_speed
+              if len(trace) > 1 else 1.0)
+    camp_cfg = CampaignConfig(slo_threshold_s=0.15, slo_target=0.95,
+                              speed=replay_speed)
+    base = FleetConfig(respawn_base_s=0.01, respawn_cap_s=0.05)
+
+    def run_one(label: str, fleet_cfg, scenario, canary: bool,
+                cache=None, platforms=None, reload_params=None) -> dict:
+        fleet = _campaign_fleet(params, cfg, buckets, label, device,
+                                fleet=fleet_cfg, platforms=platforms,
+                                cache=cache)
+        fleet.warmup()
+        try:
+            report = CampaignRunner(
+                fleet, trace, scenario,
+                dataclasses.replace(camp_cfg, canary=canary),
+                reload_params=reload_params).run()
+            report["replicas_detail"] = [
+                {"replica": s.get("replica"), "platform": s.get("platform"),
+                 "boards": s.get("boards")}
+                for s in fleet.stats()["replicas"]]
+            return report
+        finally:
+            fleet.close()
+
+    # the cache-integrity leg's attack: a rolling same-value reload (the
+    # cache invalidated mid-trace), then a replica kill, the two events
+    # that could surface a stale or lost cached answer
+    cache_scenario = Scenario(name="cache-reload-kill", seed=17, events=(
+        FaultEvent(at_s=0.35 * span_s, kind="reload"),
+        FaultEvent(at_s=0.55 * span_s, kind="kill", replica=0),))
+    # the surge leg: the heterogeneous fleet loses its card replica
+    surge_scenario = Scenario(name="surge-kill", seed=19, events=(
+        FaultEvent(at_s=0.40 * span_s, kind="kill", replica=0),))
+    platform = device.type
+    runs = {
+        "acceptance": run_one(
+            "chaos-accept", defended_config(base),
+            acceptance_scenario(span_s), canary=True),
+        "brownout_on": run_one(
+            "chaos-on", defended_config(base),
+            brownout_scenario(span_s), canary=False),
+        "brownout_off": run_one(
+            "chaos-off", base, brownout_scenario(span_s), canary=False),
+        "cache_reload": run_one(
+            "chaos-cache", defended_config(base), cache_scenario,
+            canary=False, cache=CacheConfig(),
+            reload_params=copy.deepcopy(params)),
+        "surge": run_one(
+            "chaos-surge", defended_config(base), surge_scenario,
+            canary=False, platforms=(platform, "cpu")),
+    }
+
+    reasons = []
+    acc = runs["acceptance"]
+    if acc["answers"]["lost"]:
+        reasons.append(f"acceptance: {acc['answers']['lost']} lost "
+                       "future(s)")
+    if acc["answers"]["wrong"]:
+        reasons.append(f"acceptance: {acc['answers']['wrong']} wrong "
+                       "answer(s) returned")
+    if not (acc["canary"] or {}).get("detected"):
+        reasons.append("acceptance: corruption never canary-detected")
+    if not acc["counters"]["ejections"]:
+        reasons.append("acceptance: corrupt replica never recycled")
+    for label, want_ok in (("brownout_on", True), ("brownout_off", False)):
+        r = runs[label]
+        if r["answers"]["lost"] or r["answers"]["wrong"]:
+            reasons.append(f"{label}: integrity violated")
+        if bool(r["slo"]["ok"]) is not want_ok:
+            reasons.append(
+                f"{label}: SLO {'held' if r['slo']['ok'] else 'missed'} "
+                f"(bad_frac {r['slo']['bad_frac']}) — expected "
+                f"{'hold' if want_ok else 'miss'}")
+    cr = runs["cache_reload"]
+    if cr["answers"]["lost"] or cr["answers"]["wrong"]:
+        reasons.append(f"cache_reload: {cr['answers']['wrong']} wrong / "
+                       f"{cr['answers']['lost']} lost answer(s) with the "
+                       "cache armed")
+    cstats = cr.get("cache") or {}
+    if cstats.get("stale_hits", 0):
+        reasons.append(f"cache_reload: {cstats['stale_hits']} stale "
+                       "cache hit(s) across the mid-trace reload")
+    if not cstats.get("hits", 0):
+        reasons.append("cache_reload: the cache never served a hit — "
+                       "the integrity claim tested nothing")
+    if not cr["counters"].get("reloads"):
+        reasons.append("cache_reload: the mid-trace reload never "
+                       "completed")
+    sg = runs["surge"]
+    if sg["answers"]["lost"] or sg["answers"]["wrong"]:
+        reasons.append(f"surge: {sg['answers']['wrong']} wrong / "
+                       f"{sg['answers']['lost']} lost answer(s) on the "
+                       "heterogeneous fleet")
+    if not (sg["counters"]["failovers"] or sg["counters"]["respawns"]):
+        reasons.append(f"surge: the {platform}-replica kill never crossed "
+                       "into the fleet failure domain")
+    if not sum(r["boards"] or 0 for r in sg["replicas_detail"]
+               if r.get("platform") == "cpu"):
+        reasons.append("surge: the cpu surge replica served nothing")
+    metric, unit = _METRIC_OF["chaos"]
+    result = {
+        "bench": "chaos", "metric": metric, "unit": unit,
+        "value": runs["brownout_on"]["slo"]["good_frac"],
+        "trace": {"requests": len(trace), "span_s": round(span_s, 3),
+                  "source": trace_capture or "synthetic"},
+        "chaos": {label: {"slo": r["slo"], "answers": r["answers"],
+                          "counters": r["counters"],
+                          "canary": r["canary"],
+                          "cache": r.get("cache"),
+                          "replicas": r.get("replicas_detail"),
+                          "grade": r["grade"]}
+                  for label, r in runs.items()},
+        "chaos_gate": {"pass": not reasons, "reasons": reasons},
+    }
+    if reasons:
+        result["error"] = "; ".join(reasons[:3])
+    return result
+
+
+def _parse_child_protocol(output: str) -> dict:
+    """The sessions/child.py line protocol -> {acks, digests, resumed}."""
+    acks: list = []
+    digests: dict = {}
+    resumed = None
+    for line in output.splitlines():
+        parts = line.split()
+        if not parts:
+            continue
+        if parts[0] == "SESSION_ACK" and len(parts) == 3:
+            acks.append((parts[1], int(parts[2])))
+        elif parts[0] == "SESSION_DIGEST" and len(parts) == 3:
+            digests[parts[1]] = parts[2]
+        elif parts[0] == "SESSION_RESUMED" and len(parts) == 2:
+            resumed = int(parts[1])
+    return {"acks": acks, "digests": digests, "resumed": resumed}
+
+
+def _bench_mixed(device: torch.device) -> dict:
+    """The durable-sessions mixed-workload chaos gate (``sessions/``).
+    Two legs, one verdict:
+
+      coexistence   one heterogeneous (card, cpu) fleet serves live
+                    interactive games (WAL-acked client moves and engine
+                    replies on the interactive tier) WHILE a bulk SGF scan
+                    saturates the batch tier, with transient session_wal /
+                    session_reply fault windows opened mid-run by the
+                    scenario scheduler. Graded on: the interactive latency
+                    SLO holds over exactly this leg's requests, both fault
+                    sites fired and were absorbed (zero failed acks or
+                    replies), the scan annotated positions AND shed, the
+                    cpu surge replica served, and the workload capture
+                    tells the session-shaped traffic apart
+      crash_resume  a scripted session server (``sessions/child.py`` on
+                    ``device``) is SIGKILLed mid-game after K fsync-acked
+                    moves; every acked move must be durable in the store a
+                    fresh process recovers, and a resumed child must
+                    finish every game BIT-IDENTICALLY (digest equality) to
+                    a never-killed reference run
+
+    The value is the coexistence leg's interactive within-SLO fraction;
+    ``chaos_gate`` carries the verdict (``_exit_gate`` holds it
+    unconditionally). On ``--device cpu`` the fleet is (cpu, cpu)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from .chaos import (FaultEvent, Scenario, ScenarioScheduler,
+                        defended_config)
+    from .obs import workload as workload_mod
+    from .obs.slo import HistogramLatencyObjective
+    from .serving import FleetConfig
+    from .sessions import GameService, SessionStore, SgfAnalysisService
+
+    reasons: list = []
+    sgf_dir = os.path.join(_REPO, "data", "sgf")
+    work = tempfile.mkdtemp(prefix="bench-mixed-")
+    slo_threshold_s, slo_target = 0.15, 0.95
+
+    # ---- leg 1: interactive sessions vs saturating bulk analysis -------
+    name, buckets = MIXED_SIZES[device.type]
+    cfg = policy_cnn.CONFIGS[name]
+    params = _init_params(cfg, device)
+    fleet = _campaign_fleet(
+        params, cfg, buckets, "mixed", device,
+        fleet=defended_config(FleetConfig(respawn_base_s=0.01,
+                                          respawn_cap_s=0.05)),
+        platforms=(device.type, "cpu"))
+    fleet.warmup()
+    workload_mod.configure_workload(
+        capture_dir=os.path.join(work, "capture"), store_positions=False)
+    store = SessionStore(os.path.join(work, "sessions"),
+                         checkpoint_every=8)
+    service = GameService(fleet, store)
+    # a tight batch deadline: the admission door (batch headroom 0.3)
+    # sheds the scan's burst tail instead of letting it queue ahead of
+    # interactive traffic, the coexistence contract under test
+    analysis = SgfAnalysisService(fleet, os.path.join(work, "analysis"),
+                                  timeout_s=0.05, attempts=1,
+                                  blunder_top=30)
+    # the chaos timeline: brown out the WAL ack barrier, then the
+    # engine-reply path, while both workloads are in flight
+    scenario = Scenario(name="mixed-session", seed=23, events=(
+        FaultEvent(at_s=0.5, kind="wal", arg=2),
+        FaultEvent(at_s=1.0, kind="reply", arg=2),))
+    scheduler = ScenarioScheduler(scenario, fleet_name="mixed")
+    objective = HistogramLatencyObjective(
+        "mixed-interactive", "deepgo_serving_request_seconds",
+        slo_threshold_s, target=slo_target, engine="mixed",
+        tier="interactive")
+    good0, total0 = objective.sample()
+    analysis_report: dict = {}
+
+    def run_analysis() -> None:
+        analysis_report.update(
+            analysis.run(sgf_dir, limit_positions=900))
+
+    analysis_thread = threading.Thread(target=run_analysis,
+                                       name="mixed-analysis", daemon=True)
+    sessions = [service.new_game(f"live-{i}") for i in range(3)]
+    scripts = {sid: _mixed_script(i) for i, sid in enumerate(sessions)}
+    interactive_errors = 0
+    scheduler.start()
+    analysis_thread.start()
+    try:
+        for _round in range(12):
+            for sid in sessions:
+                game = store.get(sid)
+                if game.over:
+                    continue
+                point = next((p for p in scripts[sid]
+                              if game.check_move(*p, game.to_play)
+                              is None), None)
+                try:
+                    if point is None:
+                        service.play(sid, None, None, reply=True)
+                    else:
+                        service.play(sid, point[0], point[1], reply=True)
+                except Exception:  # noqa: BLE001 — graded, not fatal
+                    interactive_errors += 1
+                time.sleep(0.04)
+        analysis_thread.join(timeout=120.0)
+    finally:
+        scheduler.stop()
+        workload_mod.disable_workload()
+    good1, total1 = objective.sample()
+    total = total1 - total0
+    good_frac = round((good1 - good0) / total, 4) if total else 0.0
+    sstats = service.stats()
+    cap = workload_mod.load_capture(os.path.join(work, "capture"))
+    sessions_block = workload_mod.characterize(
+        cap["requests"]).get("sessions") or {}
+    cpu_boards = sum(
+        s.get("boards") or 0 for s in fleet.stats()["replicas"]
+        if s.get("platform") == "cpu")
+    analysis.close()
+    service.close()
+    fleet.close()
+
+    if total == 0:
+        reasons.append("coexistence: no interactive-tier requests "
+                       "reached the latency histogram")
+    elif good_frac < slo_target:
+        reasons.append(f"coexistence: interactive SLO missed — "
+                       f"{good_frac:.2%} within {slo_threshold_s}s "
+                       f"(target {slo_target:.0%}) while batch "
+                       "saturated")
+    if interactive_errors:
+        reasons.append(f"coexistence: {interactive_errors} interactive "
+                       "move(s) failed outright under transient chaos")
+    if not sstats["wal_retries"]:
+        reasons.append("coexistence: the session_wal fault window never "
+                       "fired — the ack barrier's retry path went "
+                       "untested")
+    if not sstats["reply_retries"]:
+        reasons.append("coexistence: the session_reply fault window "
+                       "never fired — deadline-tier escalation went "
+                       "untested")
+    if sstats["corrupt_sessions"]:
+        reasons.append(f"coexistence: {len(sstats['corrupt_sessions'])} "
+                       "session(s) corrupt after transient-only chaos")
+    if not analysis_report.get("annotated"):
+        reasons.append("coexistence: the bulk scan annotated nothing")
+    if not analysis_report.get("outcomes", {}).get("shed"):
+        reasons.append("coexistence: the batch tier never shed — the "
+                       "scan did not actually saturate")
+    if not cpu_boards:
+        reasons.append("coexistence: the cpu surge replica served "
+                       "nothing")
+    if sessions_block.get("count", 0) < 3:
+        reasons.append("coexistence: the workload capture saw "
+                       f"{sessions_block.get('count', 0)} session "
+                       "label(s) — session-shaped traffic is not "
+                       "distinguishable")
+
+    # ---- leg 2: SIGKILL mid-game, zero lost acks, bit-identical resume -
+    child = [sys.executable, "-m", "deepgo_tpu_torch.sessions.child",
+             "--games", "2", "--moves", "6", "--device", device.type]
+    kill_after = 9
+
+    def run_child(store_dir: str, *extra: str) -> tuple:
+        proc = subprocess.run(
+            [*child, "--store", store_dir, *extra],
+            capture_output=True, text=True, timeout=240.0, cwd=_REPO)
+        return proc, _parse_child_protocol(proc.stdout)
+
+    ref_dir = os.path.join(work, "ref")
+    vic_dir = os.path.join(work, "victim")
+    ref_proc, ref = run_child(ref_dir)
+    vic_proc, vic = run_child(vic_dir, "--kill-after-acks",
+                              str(kill_after))
+    if ref_proc.returncode != 0:
+        reasons.append("crash_resume: reference child failed rc="
+                       f"{ref_proc.returncode}: "
+                       f"{ref_proc.stderr.strip()[-200:]}")
+    if vic_proc.returncode != -9:
+        reasons.append("crash_resume: victim was not SIGKILLed "
+                       f"(rc={vic_proc.returncode})")
+    if len(vic["acks"]) != kill_after:
+        reasons.append(f"crash_resume: victim printed "
+                       f"{len(vic['acks'])} ack(s), expected "
+                       f"{kill_after}")
+    # zero lost acked moves: a FRESH recovery of the victim's store must
+    # already hold every sequence number the victim acked
+    durable = SessionStore(vic_dir)
+    max_acked = max((seq for _, seq in vic["acks"]), default=0)
+    lost_acked = max(0, max_acked - durable.seq)
+    if lost_acked:
+        reasons.append(f"crash_resume: {lost_acked} acked move(s) "
+                       f"missing after recovery (durable seq "
+                       f"{durable.seq} < acked {max_acked})")
+    if durable.recovery["corrupt"]:
+        reasons.append("crash_resume: recovery marked "
+                       f"{durable.recovery['corrupt']} corrupt")
+    res_proc, res = run_child(vic_dir)
+    if res_proc.returncode != 0:
+        reasons.append("crash_resume: resumed child failed rc="
+                       f"{res_proc.returncode}: "
+                       f"{res_proc.stderr.strip()[-200:]}")
+    if not res["resumed"]:
+        reasons.append("crash_resume: the resumed child recovered no "
+                       "live session from the WAL")
+    if res["digests"] != ref["digests"] or not ref["digests"]:
+        reasons.append("crash_resume: resumed games are NOT "
+                       "bit-identical to the uninterrupted reference "
+                       f"({res['digests']} != {ref['digests']})")
+
+    metric, unit = _METRIC_OF["mixed"]
+    result = {
+        "bench": "mixed", "metric": metric, "unit": unit,
+        "value": good_frac,
+        "interactive": {
+            "sessions": len(sessions),
+            "requests": total,
+            "good_frac": good_frac,
+            "slo": {"threshold_s": slo_threshold_s,
+                    "target": slo_target},
+            "moves_acked": sstats["seq"],
+            "wal_retries": sstats["wal_retries"],
+            "reply_retries": sstats["reply_retries"],
+            "errors": interactive_errors,
+        },
+        "analysis": {k: analysis_report.get(k)
+                     for k in ("positions", "annotated", "blunders",
+                               "outcomes", "files_done",
+                               "stopped_early")},
+        "surge_cpu_boards": cpu_boards,
+        "sessions_workload": sessions_block,
+        "crash_resume": {
+            "kill_after_acks": kill_after,
+            "victim_rc": vic_proc.returncode,
+            "victim_acks": len(vic["acks"]),
+            "durable_seq": durable.seq,
+            "max_acked_seq": max_acked,
+            "lost_acked": lost_acked,
+            "resumed_sessions": res["resumed"],
+            "reference_digests": ref["digests"],
+            "resumed_digests": res["digests"],
+            "bit_identical": res["digests"] == ref["digests"]
+            and bool(ref["digests"]),
+        },
+        "scenario": scenario.to_dict(),
+        "chaos_gate": {"pass": not reasons, "reasons": reasons},
+    }
+    if reasons:
+        result["error"] = "; ".join(reasons[:3])
+    shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
+def _bench_search(device: torch.device) -> dict:
+    """The search-as-a-service gate (``search/``). Two legs, one verdict:
+
+      clean   concurrent PUCT searches from overlapping openings share one
+              transposition table over a live 2-replica fleet, leaf waves
+              on the interactive tier with the workload recorder armed.
+              Graded on: transposition hit rate >= 0.5, every search
+              returns a legal non-fallback move inside its deadline, and
+              the capture tells search-shaped traffic apart
+      chaos   a replica is killed mid-search (the scenario scheduler's
+              kill; replicas run max_restarts=0, so the kill crosses into
+              the fleet: failover + respawn). The anytime contract must
+              still give a legal move within the deadline (move_lost 0),
+              with the kill absorbed (failover or respawn counters moved)
+
+    The value is the clean leg's simulations/s; ``chaos_gate`` carries
+    the verdict (``_exit_gate`` holds it unconditionally)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from .chaos import (FaultEvent, Scenario, ScenarioScheduler,
+                        defended_config)
+    from .obs import workload as workload_mod
+    from .search import Search, SearchConfig, TranspositionTable
+    from .selfplay import GameState, apply_move
+    from .serving import FleetConfig
+
+    reasons: list = []
+    work = tempfile.mkdtemp(prefix="bench-search-")
+    name, buckets, sims, deadline_s = SEARCH_SIZES[device.type]
+    cfg = policy_cnn.CONFIGS[name]
+    params = _init_params(cfg, device)
+
+    def make_fleet():
+        f = _campaign_fleet(
+            params, cfg, buckets, "search", device,
+            fleet=defended_config(FleetConfig(respawn_base_s=0.01,
+                                              respawn_cap_s=0.05)))
+        f.warmup()
+        return f
+
+    # ---- leg 1: concurrent searches, one transposition table ----------
+    openings: tuple = ((), ((3, 3),), ((3, 3), (15, 15)), ())
+    fleet = make_fleet()
+    workload_mod.configure_workload(
+        capture_dir=os.path.join(work, "capture"), store_positions=False)
+    table = TranspositionTable()
+    results: list = [None] * len(openings)
+
+    def one(i: int) -> None:
+        g = GameState()
+        for x, y in openings[i]:
+            apply_move(g, x, y)
+        s = Search(fleet, SearchConfig(simulations=sims, wave_size=16,
+                                       tier="interactive",
+                                       deadline_s=120.0),
+                   table=table)
+        try:
+            results[i] = s.search(g)
+        except Exception:  # noqa: BLE001 — graded as a lost search
+            results[i] = None
+
+    threads = [threading.Thread(target=one, args=(i,),
+                                name=f"bench-search-{i}", daemon=True)
+               for i in range(len(openings))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300.0)
+    clean_wall = time.perf_counter() - t0
+    done = [r for r in results if r is not None]
+    sims_done = sum(r.simulations for r in done)
+    sims_per_sec = round(sims_done / clean_wall, 2) if clean_wall else 0.0
+    tt = table.stats()
+    hit_rate = round(tt["hits"] / max(1, tt["lookups"]), 4)
+    occupancy = round(float(np.mean([r.wave_occupancy for r in done])), 4) \
+        if done else 0.0
+    workload_mod.disable_workload()
+    cap = workload_mod.load_capture(os.path.join(work, "capture"))
+    search_block = workload_mod.characterize(
+        cap["requests"]).get("search") or {}
+    fleet.close()
+
+    if len(done) < len(openings):
+        reasons.append(f"clean: {len(openings) - len(done)} of "
+                       f"{len(openings)} concurrent searches died")
+    if any(r.fallback for r in done):
+        reasons.append("clean: a search degraded to the fallback move "
+                       "with no chaos running")
+    if any(r.move < 0 for r in done):
+        reasons.append("clean: a search passed from the opening")
+    if not all(r.deadline_met for r in done):
+        reasons.append("clean: a search blew its deadline unperturbed")
+    if hit_rate < 0.5:
+        reasons.append(f"clean: transposition hit rate {hit_rate:.2%} "
+                       "< 50% across concurrent searches — the shared "
+                       "tree is not deduplicating")
+    if search_block.get("searches", 0) < len(openings):
+        reasons.append("clean: the workload capture saw "
+                       f"{search_block.get('searches', 0)} search "
+                       "label(s) — search-shaped traffic is not "
+                       "distinguishable")
+
+    # ---- leg 2: replica kill mid-search, the move still lands ---------
+    fleet2 = make_fleet()
+    searcher = Search(fleet2, SearchConfig(simulations=sims, wave_size=8,
+                                           tier="interactive"))
+    scenario = Scenario(name="search-kill", seed=7, events=(
+        FaultEvent(at_s=0.2, kind="kill", replica=0),))
+    scheduler = ScenarioScheduler(scenario, fleet_name="search")
+    scheduler.start()
+    t0 = time.perf_counter()
+    try:
+        chaos_res = searcher.search(GameState(), deadline_s=deadline_s)
+    except Exception as e:  # noqa: BLE001 — graded as a lost move
+        chaos_res = None
+        reasons.append(f"chaos: the search raised instead of honoring "
+                       f"the anytime contract: {type(e).__name__}")
+    chaos_wall = time.perf_counter() - t0
+    scheduler.stop()
+    fstats = fleet2.stats()["fleet"]
+    fleet2.close()
+    move_lost = int(chaos_res is None or chaos_res.move < 0)
+    if move_lost:
+        reasons.append("chaos: the replica kill lost the move "
+                       f"(move={getattr(chaos_res, 'move', None)})")
+    if chaos_res is not None and chaos_wall > deadline_s + 1.0:
+        reasons.append(f"chaos: the move took {chaos_wall:.1f}s against "
+                       f"a {deadline_s:.0f}s deadline")
+    if not scheduler.executed:
+        reasons.append("chaos: the kill event never fired")
+    elif not (fstats.get("failovers") or fstats.get("respawns")):
+        reasons.append("chaos: the kill fired but neither failover nor "
+                       "respawn engaged — the fault missed the fleet")
+
+    metric, unit = _METRIC_OF["search"]
+    result = {
+        "bench": "search", "metric": metric, "unit": unit,
+        "value": sims_per_sec,
+        "clean": {
+            "searches": len(openings),
+            "simulations": sims_done,
+            "lost": sum(r.lost for r in done),
+            "wall_s": round(clean_wall, 3),
+            "simulations_per_sec": sims_per_sec,
+            "wave_occupancy": occupancy,
+            "transposition": {**tt, "hit_rate": hit_rate},
+            "deadline_met": all(r.deadline_met for r in done),
+            "moves": [r.move for r in done],
+            "search_workload": search_block,
+        },
+        "chaos": {
+            "scenario": scenario.to_dict(),
+            "move": None if chaos_res is None else chaos_res.move,
+            "move_lost": move_lost,
+            "simulations": 0 if chaos_res is None
+            else chaos_res.simulations,
+            "lost_simulations": 0 if chaos_res is None else chaos_res.lost,
+            "wall_s": round(chaos_wall, 3),
+            "deadline_s": deadline_s,
+            "deadline_met": bool(chaos_res and chaos_res.deadline_met),
+            "fallback": bool(chaos_res and chaos_res.fallback),
+            "failovers": fstats.get("failovers"),
+            "respawns": fstats.get("respawns"),
+        },
+        "chaos_gate": {"pass": not reasons, "reasons": reasons},
+    }
+    if reasons:
+        result["error"] = "; ".join(reasons[:3])
+    shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
+def _mixed_script(i: int) -> list:
+    """A deterministic per-session move preference order (the seeded
+    shuffle of sessions/child.py, offset so the bench's live sessions
+    never collide with the crash leg's)."""
+    import random
+
+    points = [(x, y) for x in range(19) for y in range(19)]
+    random.Random(500 + i).shuffle(points)
+    return points
+
+
+@contextlib.contextmanager
+def _deterministic_kernels():
+    """Deterministic algorithms for the span of a run: cuDNN's
+    weight-gradient kernels otherwise accumulate with atomics in varying
+    order, and the loop's windows would not replay bitwise on the card.
+    ``CUBLAS_WORKSPACE_CONFIG`` must be set before cuBLAS first runs in
+    the process (from the command line this is before CUDA starts); it
+    stays set. The previous settings come back afterwards."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in (":4096:8", ":16:8"):
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        torch.backends.cudnn.benchmark = saved[2]
 
 
 def _attach_obs(result: dict, exporter) -> None:
@@ -1523,40 +2382,20 @@ def _bench_serving(device: torch.device, faults_spec: str | None = None,
     wl_recorder.drain()
     wl_stats = wl_recorder.stats()
     workload_mod.disable_workload()
-    lockcheck_report = None
-    from .analysis import cudacheck, lockcheck
-
-    if lockcheck.enabled():
-        lrep = lockcheck.report()
-        lockcheck_report = {"locks": len(lrep["locks"]),
-                            "cycles": len(lrep["cycles"]),
-                            "hazards": len(lrep["hazards"])}
-        for cyc in lrep["cycles"]:
-            print(f"bench: LOCK ORDER CYCLE {' -> '.join(cyc['cycle'])}",
-                  file=sys.stderr, flush=True)
-        if lrep["cycles"]:
-            errors.append(f"{len(lrep['cycles'])} lock-order cycle(s) "
-                          "detected")
-    xlacheck_report = None
-    if cudacheck.enabled():
-        xrep = cudacheck.report()
-        xlacheck_report = {
-            "watched": len(xrep["watched"]),
-            "steady_state_compiles": xrep["steady_state_compiles"],
-            "transfer_violations": len(xrep["transfers"]),
-            "sharding_mismatches": len(xrep["sharding"]),
-        }
-        for storm in xrep["storms"]:
-            print(f"bench: RECOMPILE STORM {storm['fn']} shapes "
-                  f"{storm['shapes']}", file=sys.stderr, flush=True)
+    lockcheck_report, xlacheck_report = _sanitizer_reports()
+    if lockcheck_report is not None and lockcheck_report["cycles"]:
+        errors.append(f"{lockcheck_report['cycles']} lock-order cycle(s) "
+                      "detected")
+    if xlacheck_report is not None:
+        xrep = xlacheck_report
         if xrep["steady_state_compiles"]:
             errors.append(f"{xrep['steady_state_compiles']} steady-state "
                           "compile(s) post-warmup")
-        if xrep["transfers"]:
-            errors.append(f"{len(xrep['transfers'])} implicit "
+        if xrep["transfer_violations"]:
+            errors.append(f"{xrep['transfer_violations']} implicit "
                           "host<->device transfer(s) in guarded sections")
-        if xrep["sharding"]:
-            errors.append(f"{len(xrep['sharding'])} sharding-claim "
+        if xrep["sharding_mismatches"]:
+            errors.append(f"{xrep['sharding_mismatches']} sharding-claim "
                           "mismatch(es)")
     goodput = outcomes["ok"] / dt
     # tracing accounting: started == finished (no orphan ids) and every ok
@@ -1763,8 +2602,14 @@ def _run_mode(args, device: torch.device, exporter) -> dict:
                               fleet=args.fleet, variant=args.variant,
                               trace_capture=args.trace,
                               replay_speed=args.replay_speed)
+    if args.mode == "loop":
+        return _bench_loop(device, args.faults)
+    if args.mode == "chaos":
+        return _bench_chaos(device, trace_capture=args.trace,
+                            replay_speed=args.replay_speed)
     fn = {"train": _bench_train, "latency": _bench_latency,
-          "large": _bench_large}[args.mode]
+          "large": _bench_large, "mixed": _bench_mixed,
+          "search": _bench_search}[args.mode]
     return fn(device)
 
 
@@ -1773,9 +2618,7 @@ def _parser():
 
     ap = argparse.ArgumentParser(
         prog="python -m deepgo_tpu_torch.bench",
-        description="deepgo_tpu_torch benchmarks on one CUDA card. The "
-                    "JAX bench's loop, search, mixed and chaos modes wait "
-                    "for a later slice (ROADMAP A11.2).")
+        description="deepgo_tpu_torch benchmarks on one CUDA card")
     ap.add_argument("--mode", default="inference", choices=list(MODES))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card sizes; raises without a "
@@ -1783,14 +2626,17 @@ def _parser():
                          "CPU sizes, for the tests)")
     ap.add_argument("--faults", nargs="?", const="__default__",
                     default=None, metavar="SPEC",
-                    help="(--mode serving / distributed) chaos run: "
-                         "install this DEEPGO_FAULTS spec (serving default: "
-                         f"'{DEFAULT_CHAOS_FAULTS}'; with --fleet: "
+                    help="(--mode serving / distributed / loop) chaos "
+                         "run: install this DEEPGO_FAULTS spec (serving "
+                         f"default: '{DEFAULT_CHAOS_FAULTS}'; with --fleet: "
                          f"'{DEFAULT_FLEET_FAULTS}'; distributed default: "
                          f"'{DEFAULT_DIST_FAULTS}', given to the victim "
-                         "host). Serving reports goodput + restart/shed/"
-                         "poison counters; distributed reports recovery "
-                         "latency + steps lost")
+                         f"host; loop default: '{DEFAULT_LOOP_FAULTS}', one "
+                         "kill per loop component class). Serving reports "
+                         "goodput + restart/shed/poison counters; "
+                         "distributed reports recovery latency + steps "
+                         "lost; loop reports games lost (must be 0), "
+                         "resume bit-exactness and champion freshness")
     ap.add_argument("--fleet", type=int, default=None, metavar="N",
                     help="(--mode serving) route the workload through a "
                          "FleetRouter of N supervised replicas with "
@@ -1807,12 +2653,14 @@ def _parser():
                          "weights; the line gains a `variant` block folded "
                          "into the --gate verdict")
     ap.add_argument("--trace", default=None, metavar="DIR",
-                    help="(--mode serving) replay this workload capture "
-                         "(cli workload record) instead of the uniform-"
-                         "random submitters: real positions at recorded "
-                         "inter-arrival pace, open loop; the line gains a "
-                         "`replay` fidelity block and a `cache` block (the "
-                         "position-cache on/off A/B, folded into --gate)")
+                    help="(--mode serving / chaos) replay this workload "
+                         "capture (cli workload record) instead of the "
+                         "uniform-random submitters (serving: real "
+                         "positions at recorded inter-arrival pace, open "
+                         "loop; the line gains a `replay` fidelity block "
+                         "and a `cache` block, the position-cache on/off "
+                         "A/B folded into --gate) or of chaos's synthetic "
+                         "trace")
     ap.add_argument("--replay-speed", type=float, default=1.0,
                     metavar="X",
                     help="(--trace) arrival-timeline speedup (1.0 = "
@@ -1834,14 +2682,15 @@ def _parser():
 
 def _check_args(ap, args) -> None:
     if args.faults is not None and args.mode not in ("serving",
-                                                     "distributed"):
-        ap.error("--faults only applies to --mode serving or distributed")
+                                                     "distributed", "loop"):
+        ap.error("--faults only applies to --mode serving, distributed, "
+                 "or loop")
     if args.fleet is not None and args.mode != "serving":
         ap.error("--fleet only applies to --mode serving")
     if args.fleet is not None and args.fleet < 2:
         ap.error("--fleet needs N >= 2 (a 1-replica fleet is --faults)")
-    if args.trace is not None and args.mode != "serving":
-        ap.error("--trace only applies to --mode serving")
+    if args.trace is not None and args.mode not in ("serving", "chaos"):
+        ap.error("--trace only applies to --mode serving or chaos")
     if args.replay_speed <= 0:
         ap.error("--replay-speed must be > 0")
     if args.variant is not None:
@@ -1857,6 +2706,7 @@ def _check_args(ap, args) -> None:
         ap.error(f"--device must be cuda or cpu, got {args.device!r}")
     if args.faults == "__default__":
         args.faults = (DEFAULT_DIST_FAULTS if args.mode == "distributed"
+                       else DEFAULT_LOOP_FAULTS if args.mode == "loop"
                        else DEFAULT_FLEET_FAULTS if args.fleet
                        else DEFAULT_CHAOS_FAULTS)
 
@@ -1883,15 +2733,20 @@ def main(argv=None) -> None:
     probe = (None if args.mode == "distributed"
              else _preflight_probe(args.mode, device))
     watchdog = _arm_watchdog(args.mode)
+    # the loop's windows replay bitwise on the card only under
+    # deterministic kernels, set here before the mode touches CUDA
+    kernels = (_deterministic_kernels() if args.mode == "loop"
+               else contextlib.nullcontext())
     try:
-        if args.mode == "distributed":
-            result = _bench_distributed(args.faults, device)
-            result["device"] = (f"{_device_label(device)} "
-                                "(2 simulated elastic hosts)")
-        else:
-            result = _run_mode(args, device, obs_exporter)
-            result["device"] = _device_label(device)
-            result["probe"] = probe
+        with kernels:
+            if args.mode == "distributed":
+                result = _bench_distributed(args.faults, device)
+                result["device"] = (f"{_device_label(device)} "
+                                    "(2 simulated elastic hosts)")
+            else:
+                result = _run_mode(args, device, obs_exporter)
+                result["device"] = _device_label(device)
+                result["probe"] = probe
     except Exception as e:  # noqa: BLE001 — the line reports it, rc 1
         import traceback
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.cudacheck import place
 from ..obs import get_registry
 from ..ops.wire import nibble_pack_np
 from .dataset import GoDataset
@@ -141,10 +142,10 @@ def make_host_superbatch(dataset: GoDataset, rng: np.random.Generator,
 
 
 def to_device(batch: dict, device) -> dict[str, torch.Tensor]:
-    """Host arrays -> tensors on ``device`` (a blocking copy); for
-    batches built outside the loader, such as fixed validation sets."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    """Host arrays -> tensors on ``device`` (a blocking copy, or the
+    sanitizer's declared staged copy when it is armed); for batches built
+    outside the loader, such as fixed validation sets."""
+    return {k: place(v, device) for k, v in batch.items()}
 
 
 class AsyncLoader:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import BOARD_SIZE
+from ..analysis.cudacheck import place
 from ..models.convert import params_from_jax
 from ..models.policy_cnn import ModelConfig
 from ..utils import faults
@@ -378,7 +379,7 @@ def load_model_like(template, path: str):
     model = type(template)(template.cfg)
     model.load_state_dict(from_jax(unflatten_like(to_jax(model), leaves,
                                                   path)))
-    return model.to(next(template.parameters()).device)
+    return place(model, next(template.parameters()).device)
 
 
 def policy_state_dict(leaves, cfg: ModelConfig, path: str = "<checkpoint>"

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.cudacheck import stage_d2h
 from ..data.loader import make_step_batch, to_device
 from ..experiments import ExperimentConfig
 from ..experiments import checkpoint as ckpt
@@ -292,7 +293,7 @@ class ContinuousLearner:
         # order as a per-step read, so the checkpointed EWMA and the
         # bit-exact resume are unchanged
         # lint: allow[hot-sync] declared materialization point: one fetch per window, not one per step
-        for last_loss in torch.stack(losses).cpu().numpy().tolist():
+        for last_loss in stage_d2h(torch.stack(losses)).tolist():
             ewma = (last_loss if ewma is None
                     else 0.95 * ewma + 0.05 * last_loss)
         self.ewma = ewma

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.cudacheck import place, stage_d2h
 from .policy_cnn import ModelConfig, PolicyCNN
 
 
@@ -42,8 +43,8 @@ def named_to_jax(named: dict[str, torch.Tensor]) -> dict:
     the JAX-layout tree of float32 numpy arrays."""
     layers = []
     for i in range(len(named) // 2):
-        w = named[f"layers.{i}.weight"].detach().cpu().numpy()
-        b = named[f"layers.{i}.bias"].detach().cpu().numpy()
+        w = stage_d2h(named[f"layers.{i}.weight"].detach())
+        b = stage_d2h(named[f"layers.{i}.bias"].detach())
         layers.append({"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
                        "b": np.ascontiguousarray(b.transpose(1, 2, 0))})
     return {"layers": layers}
@@ -62,18 +63,18 @@ def opt_state_from_jax(tree, device="cuda") -> dict:
     policy tree}``) -> the port's state on ``device``: ``rate`` a 0-d
     float32 tensor, each tree a dict from parameter name to tensor."""
     device = resolve_device(device)
-    state = {"rate": torch.from_numpy(
-        np.array(tree["rate"], dtype=np.float32)).to(device)}
+    state = {"rate": place(np.array(tree["rate"], dtype=np.float32),
+                           device)}
     for key in _OPT_TREES:
         if key in tree:
-            state[key] = {n: t.to(device)
+            state[key] = {n: place(t, device)
                           for n, t in params_from_jax(tree[key]).items()}
     return state
 
 
 def opt_state_to_jax(state: dict) -> dict:
     """The port's optimizer state -> the JAX layout, numpy arrays."""
-    tree = {"rate": state["rate"].detach().cpu().numpy()}
+    tree = {"rate": stage_d2h(state["rate"].detach())}
     for key in _OPT_TREES:
         if key in state:
             tree[key] = named_to_jax(state[key])

@@ -27,6 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import BOARD_SIZE, NUM_POINTS, resolve_device
+from ..analysis.cudacheck import place
 from ..features import NUM_PLANES
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -169,7 +170,7 @@ def init(generator: torch.Generator, cfg: ModelConfig,
             c_out, c_in, k, _ = layer.weight.shape
             w = torch.randn(layer.weight.shape, generator=generator)
             layer.weight.copy_(w * math.sqrt(2.0 / (k * k * c_in)))
-    return model.to(device)
+    return place(model, device)
 
 
 def apply(model: PolicyCNN, planes: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import NUM_POINTS, resolve_device
-from ..analysis.cudacheck import stage_d2h
+from ..analysis.cudacheck import place, stage_d2h
 from ..experiments import checkpoint as ckpt
 from ..ops import expand_planes, expand_planes_sym
 from ..ops.augment import _TARGET_MAP_NP, NUM_SYMMETRIES, table
@@ -50,13 +50,45 @@ def check_model(params, cfg) -> None:
                          f"{cfg}")
 
 
+# On the card cuDNN picks its convolution algorithm by the batch size, and
+# below some size it picks another that rounds a bf16 row differently: on
+# an NVIDIA H100 (torch 2.11, CUDA 12.8) at 4-32 rows for ``small`` and
+# 1-16 for ``full``, by up to 1e-3 and 6e-3 in a log-probability. From 64
+# rows up a row's result depends on that row alone, as XLA's does on every
+# rung. So a card forward runs its convolutions over at least this many
+# rows (zero planes below the real ones): a board gets the same answer on
+# every rung of the ladder, which a position cache and the chaos
+# campaigns' answer check hold it to.
+CARD_MIN_ROWS = 64
+
+
+def conv_rows(batch: int, device) -> int:
+    """The rows a serving forward of ``batch`` boards convolves on
+    ``device``."""
+    if torch.device(device).type == "cuda":
+        return max(batch, CARD_MIN_ROWS)
+    return batch
+
+
+def log_policy_rows(params: policy_cnn.PolicyCNN, planes: torch.Tensor,
+                    rows: int) -> torch.Tensor:
+    """``policy_cnn.log_policy`` of ``planes``, the convolutions run over
+    ``rows`` >= ``len(planes)`` rows (zero planes below the real ones)."""
+    b = planes.shape[0]
+    if rows <= b:
+        return policy_cnn.log_policy(params, planes)
+    pad = planes.new_zeros((rows - b, *planes.shape[1:]))
+    return policy_cnn.log_policy(params, torch.cat([planes, pad]))[:b]
+
+
 def _forward_log_probs(cfg, device):
     def log_probs(params: policy_cnn.PolicyCNN, packed, player, rank
                   ) -> torch.Tensor:
         check_model(params, cfg)
         planes = expand_planes(*inputs_on(device, packed, player, rank),
                                dtype=cfg.torch_dtype)
-        return policy_cnn.log_policy(params, planes)
+        return log_policy_rows(params, planes,
+                               conv_rows(planes.shape[0], device))
 
     return log_probs
 
@@ -189,4 +221,4 @@ def load_policy(checkpoint_path: str, top_k: int = 5, device="cuda"):
     model.load_state_dict(ckpt.policy_state_dict(p_leaves, cfg,
                                                  checkpoint_path))
     return make_policy_fn(cfg, top_k=top_k, device=device), \
-        model.to(device), cfg
+        place(model, device), cfg

@@ -519,8 +519,9 @@ def ladder_entries(ledger: CostLedger, cfg, buckets=None, forward=None,
                    fn_name: str = "policy_forward") -> list[CostEntry]:
     """One entry per bucket-ladder rung of the serving forward
     (``make_log_prob_fn`` on the ledger's device unless ``forward`` is the
-    engine's own), each priced on empty boards."""
-    from ..models.serving import make_log_prob_fn
+    engine's own), each priced on empty boards; the analytic fallback
+    counts the rows the forward convolves (``serving.conv_rows``)."""
+    from ..models.serving import conv_rows, make_log_prob_fn
 
     fn = forward if forward is not None else make_log_prob_fn(
         cfg, ledger.device)
@@ -530,7 +531,7 @@ def ladder_entries(ledger: CostLedger, cfg, buckets=None, forward=None,
         packed, ints = _boards(b)
         out.append(ledger.measure(
             fn_name, fn, (params, packed, ints, ints), bucket=b,
-            analytic=analytic_flops(cfg, b)))
+            analytic=analytic_flops(cfg, conv_rows(b, ledger.device))))
     return out
 
 
@@ -538,7 +539,9 @@ def variant_entries(ledger: CostLedger, cfg, variant: str, buckets=None,
                     forward=None) -> list[CostEntry]:
     """Price one named serving variant's forward over the ladder rungs
     (serving/variants.py); sym variants compute eight forwards a board,
-    so their analytic fallback is 8x."""
+    so their analytic fallback is 8x (the others convolve
+    ``serving.conv_rows`` rows)."""
+    from ..models.serving import conv_rows
     from ..serving.variants import variant_fn_name, variant_spec
 
     if variant == "f32":
@@ -546,13 +549,14 @@ def variant_entries(ledger: CostLedger, cfg, variant: str, buckets=None,
     spec = variant_spec(cfg, variant, device=ledger.device)
     fn = forward if forward is not None else spec.forward
     params = spec.prepare(_model(cfg, ledger.device))
-    views = 8.0 if "sym" in variant else 1.0
     out = []
     for b in _buckets(buckets):
         packed, ints = _boards(b)
+        analytic = (8.0 * analytic_flops(cfg, b) if "sym" in variant
+                    else analytic_flops(cfg, conv_rows(b, ledger.device)))
         out.append(ledger.measure(
             variant_fn_name(variant), fn, (params, packed, ints, ints),
-            bucket=b, analytic=views * analytic_flops(cfg, b)))
+            bucket=b, analytic=analytic))
     return out
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import BOARD_SIZE
+from .analysis.cudacheck import stage_h2d
 from .features import P_LIB_AFTER, P_STONES
 from .go import (group_and_liberties, native, neighbors, new_board, play,
                  summarize)
@@ -180,10 +181,15 @@ def batched_log_probs(predict, params, packed: np.ndarray,
     the row of any other batch on that rung (row-independent model). This
     is the direct, threadless path for a single lockstep caller;
     concurrent submitters should share an ``serving.InferenceEngine``
-    instead.
+    instead. Its inputs go to the forward's device through the
+    sanitizer's declared point (``cudacheck.stage_h2d``, identity when it
+    is off), as the engine's do: a loop's gate plays here beside guarded
+    dispatches.
     """
+    device = getattr(predict, "device", None)
     return bucketed_forward(
-        lambda pk, pl, rk: predict(params, pk, pl, rk)["log_probs"],
+        lambda pk, pl, rk: predict(params, *stage_h2d(
+            pk, pl, rk, device=device))["log_probs"],
         packed, players, ranks, ladder or ladder_for(len(packed)))
 
 

@@ -36,6 +36,8 @@ from typing import Callable, NamedTuple
 import torch
 from torch import nn
 
+from ..analysis.cudacheck import place
+
 
 class Optimizer(NamedTuple):
     init: Callable[[nn.Module], dict]
@@ -61,7 +63,7 @@ def _named(model: nn.Module) -> tuple[list[str], list[torch.Tensor]]:
 
 def _rate(rate: float, model: nn.Module) -> torch.Tensor:
     device = next(model.parameters()).device
-    return torch.tensor(rate, dtype=torch.float32, device=device)
+    return place(torch.tensor(rate, dtype=torch.float32), device)
 
 
 def sgd(rate: float, rate_decay: float = 0.0, momentum: float = 0.0

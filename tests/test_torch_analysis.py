@@ -269,6 +269,29 @@ def test_cudacheck_off_is_identity():
         cudacheck.enable(None)
 
 
+@pytest.mark.parametrize("on", [False, True])
+def test_place_moves_arrays_tensors_and_modules(on):
+    """``place`` is ``.to(device)`` off the card, armed or not: arrays
+    become tensors of the same shape (0-d included), tensors and modules
+    already there come back as they are."""
+    cudacheck.enable(on)
+    try:
+        for array in (np.array(0.5, np.float32), np.arange(6.0)[::2],
+                      np.zeros((2, 9, 19, 19), np.uint8)):
+            t = cudacheck.place(array, "cpu")
+            assert isinstance(t, torch.Tensor) and t.shape == array.shape
+            np.testing.assert_array_equal(t.numpy(), array)
+        t = torch.arange(3)
+        assert cudacheck.place(t, "cpu") is t
+        model = policy_cnn.init(torch.Generator().manual_seed(0),
+                                policy_cnn.ModelConfig(num_layers=2,
+                                                       channels=4),
+                                device="cpu")
+        assert cudacheck.place(model, "cpu") is model
+    finally:
+        cudacheck.enable(None)
+
+
 @pytest.fixture
 def armed():
     cudacheck.enable(True)

@@ -408,7 +408,9 @@ def test_main_gates_against_the_previous_record_then_records(
     (["--mode", "serving", "--variant", "int4"], "unknown --variant"),
     (["--mode", "serving", "--variant", "int8", "--faults"],
      "--variant applies"),
-    (["--mode", "loop"], "invalid choice"),
+    (["--mode", "search", "--faults"], "--faults only applies"),
+    (["--mode", "loop", "--trace", "X"], "--trace only applies"),
+    (["--mode", "bogus"], "invalid choice"),
     (["--mode", "latency", "--device", "tpu"], "--device must be"),
 ])
 def test_argument_errors(argv, message, capsys):

@@ -22,8 +22,10 @@ from deepgo_tpu.serving.buckets import bucketed_forward as jax_bucketed
 
 from deepgo_tpu_torch import resolve_device
 from deepgo_tpu_torch.models import convert, policy_cnn
-from deepgo_tpu_torch.models.serving import (load_policy, make_log_prob_fn,
-                                             make_policy_fn)
+from deepgo_tpu_torch.models.serving import (CARD_MIN_ROWS, conv_rows,
+                                             load_policy, log_policy_rows,
+                                             make_log_prob_fn, make_policy_fn)
+from deepgo_tpu_torch.ops import expand_planes
 from deepgo_tpu_torch.serving import (BatchDispatchError, BucketLadder,
                                       EngineBusy, EngineClosed, EngineConfig,
                                       EngineError, InferenceEngine,
@@ -159,6 +161,27 @@ def test_rows_bitwise_equal_direct_forward_at_their_rung():
         direct = forward(model, *ladder.pad(packed[i:i + 1], player[i:i + 1],
                                             rank[i:i + 1], bucket))[0]
         assert np.array_equal(row, direct), (i, bucket)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 64])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_rows_convolved_over_padding_are_the_rows(batch, compute_dtype):
+    """The card forward convolves at least ``CARD_MIN_ROWS`` rows, zero
+    planes below the real ones (ROADMAP C11); on the CPU the same padding
+    leaves every real row as it was."""
+    _, cfg, _, model = tiny(compute_dtype=compute_dtype)
+    packed, player, rank = boards(batch, seed=5)
+    planes = expand_planes(*(torch.from_numpy(a) for a in (
+        packed, player, rank)), dtype=cfg.torch_dtype)
+    with torch.inference_mode():
+        plain = log_policy_rows(model, planes, batch)
+        padded = log_policy_rows(model, planes, CARD_MIN_ROWS)
+    assert padded.shape == (batch, 361)
+    np.testing.assert_allclose(padded.float().numpy(),
+                               plain.float().numpy(), rtol=0, atol=1e-6)
+    assert conv_rows(batch, "cpu") == batch
+    assert conv_rows(batch, "cuda") == max(batch, CARD_MIN_ROWS) == max(
+        batch, 64)
 
 
 def slow_forward(delay, entered=None):

@@ -398,6 +398,29 @@ class TestGameService:
             [svc.budgets_s[1]]
         svc.close()
 
+    def test_reply_window_leaves_one_tier(self, tmp_path):
+        # the mixed bench's reply window (session_reply:transient@2)
+        # spends two of a move's three deadline tiers: a miss on the last
+        # fails the move typed, with the client's move acked and the
+        # session unchanged, so the next reply goes through (C14)
+        fleet = StubFleet(errors=[TimeoutError("deadline")])
+        fleet, store, svc = make_service(tmp_path, fleet=fleet)
+        sid = svc.new_game()
+        faults.install("session_reply:transient@2")
+        with pytest.raises(ReplyExhausted) as err:
+            svc.play(sid, 3, 3)
+        assert isinstance(err.value.__cause__, TimeoutError)
+        assert [c["timeout_s"] for c in fleet.calls] == [svc.budgets_s[-1]]
+        assert svc.reply_retries == 3
+        game = store.get(sid)
+        assert game.moves == [{"player": BLACK, "x": 3, "y": 3}]
+        fresh = SessionStore(store.root)
+        assert fresh.get(sid).digest() == game.digest()
+        fresh.close()
+        out = svc.engine_reply(sid)
+        assert out["player"] == WHITE and out["seq"] == store.seq
+        svc.close()
+
     def test_health_composes(self, tmp_path):
         fleet, store, svc = make_service(tmp_path)
         svc.new_game("a")
