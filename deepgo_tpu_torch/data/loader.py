@@ -12,6 +12,13 @@ delivered tensor on it, so the caching allocator does not reuse a batch's
 device memory while a step still reads it. On the CPU the arrays are
 wrapped as tensors: no pinning, no stream.
 
+Hot spans (``obs.spans.hot_span``) name the loader's work on every
+thread: ``loader.get`` (the consumer's ``get()``, timed into
+``deepgo_loader_wait_seconds``), ``loader.sample`` and ``loader.put_wait``
+(a worker sampling one unit, then waiting on a full queue, into
+``deepgo_span_seconds``) and ``loader.upload`` (the copy to the device on
+the uploader or inline, into ``deepgo_h2d_seconds{path}``).
+
 ``num_threads=0`` samples synchronously in the caller and is
 *step-indexed*: the batch for step t is a pure function of (seed, t), so a
 resumed run replays the uninterrupted run's batches bitwise.
@@ -38,6 +45,7 @@ import torch
 from .. import resolve_device
 from ..analysis.cudacheck import place
 from ..obs import get_registry
+from ..obs.spans import hot_span
 from ..ops.wire import nibble_pack_np
 from .dataset import GoDataset
 
@@ -266,13 +274,15 @@ class AsyncLoader:
     def _worker(self, rng: np.random.Generator) -> None:
         try:
             while not self._stop.is_set():
-                batch = self._produce(self.stack, rng)
-                while not self._stop.is_set():
-                    try:
-                        self._queue.put(batch, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                with hot_span("loader.sample"):
+                    batch = self._produce(self.stack, rng)
+                with hot_span("loader.put_wait"):
+                    while not self._stop.is_set():
+                        try:
+                            self._queue.put(batch, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
         except BaseException as e:  # noqa: BLE001 — surfaced via get()
             # stash the first error and stop the pool, so the consumer's
             # next get() re-raises it instead of waiting forever
@@ -319,10 +329,8 @@ class AsyncLoader:
             batch = self._drain(self._queue)
         else:
             batch = self._produce(stack, self._sync_rng)
-        t0 = time.monotonic()
-        staged = self._copy(batch)
-        self._obs_h2d.observe(time.monotonic() - t0, path=path)
-        return staged
+        with hot_span("loader.upload", self._obs_h2d, path=path):
+            return self._copy(batch)
 
     def _upload_loop(self) -> None:
         """Uploader thread: keep the device queue full of (super)batches
@@ -359,13 +367,12 @@ class AsyncLoader:
         ``stack`` overrides the constructor's depth for this call (the
         final partial window); such calls bypass the device queue."""
         stack = self.stack if stack is None else stack
-        t0 = time.monotonic()
-        if self._dev_queue is not None and stack == self.stack:
-            staged = self._drain(self._dev_queue)
-        else:
-            staged = self._assemble(stack)
-        batch = self._deliver(staged)
-        self._obs_wait.observe(time.monotonic() - t0)
+        with hot_span("loader.get", self._obs_wait):
+            if self._dev_queue is not None and stack == self.stack:
+                staged = self._drain(self._dev_queue)
+            else:
+                staged = self._assemble(stack)
+            batch = self._deliver(staged)
         if self.num_threads > 0:
             self._obs_depth.set(self._queue.qsize(), queue="host")
             if self._dev_queue is not None:

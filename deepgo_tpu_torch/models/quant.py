@@ -48,11 +48,10 @@ from torch import nn
 import torch.nn.functional as F
 
 from .. import BOARD_SIZE, NUM_POINTS, resolve_device
-from ..analysis.cudacheck import stage_d2h
 from ..ops import expand_planes_sym
 from ..ops.augment import _TARGET_MAP_NP, NUM_SYMMETRIES, table
 from . import policy_cnn
-from .serving import _forward_log_probs, check_model, inputs_on
+from .serving import _log_probs_net, check_model, serve, serve_laps
 
 # symmetric int8: the full signed range minus the asymmetric -128, so the
 # codebook is symmetric around zero and dequant is one multiply
@@ -159,12 +158,14 @@ def make_quant_log_prob_fn(cfg: policy_cnn.ModelConfig, device="cuda"):
     the int8 twin of ``serving.make_log_prob_fn``, with the same
     engine-facing signature (``qparams`` is a ``QuantPolicyCNN``)."""
     device = resolve_device(device)
-    forward = _forward_log_probs(cfg, device)
+    laps = serve_laps()
+    net = _log_probs_net(cfg, device)
 
     @torch.inference_mode()
     def log_probs(qparams, packed, player, rank) -> np.ndarray:
         _check_kind(qparams, True)
-        return stage_d2h(forward(qparams, packed, player, rank))
+        check_model(qparams, cfg)
+        return serve(laps, device, net, qparams, packed, player, rank)
 
     log_probs.device = device
     return log_probs
@@ -189,23 +190,26 @@ def make_fused_sym_policy_fn(cfg: policy_cnn.ModelConfig,
         raise ValueError(f"symmetries must be in [1, {NUM_SYMMETRIES}], "
                          f"got {symmetries!r}")
     device = resolve_device(device)
+    laps = serve_laps()
     tmap = table(_TARGET_MAP_NP[:s], device)  # (S, 361) inverse tables
     log_s = math.log(s)
 
-    @torch.inference_mode()
-    def predict(params, packed, player, rank) -> np.ndarray:
-        check_model(params, cfg)
-        _check_kind(params, quant)
-        packed, player, rank = inputs_on(device, packed, player, rank)
-        b = packed.shape[0]
-        planes = expand_planes_sym(packed, player, rank, symmetries=s,
+    def net(params, staged: list) -> torch.Tensor:
+        planes = expand_planes_sym(*staged.pop(), symmetries=s,
                                    dtype=cfg.torch_dtype)
+        b = planes.shape[0] // s
         logp = policy_cnn.log_policy(params, planes).reshape(s, b,
                                                              NUM_POINTS)
         # view k's distribution mapped back: orig point p sits at
         # tmap[k, p]; then the mixture average in log space
         back = torch.gather(logp, 2, tmap[:, None, :].expand_as(logp))
-        return stage_d2h(torch.logsumexp(back, dim=0) - log_s)
+        return torch.logsumexp(back, dim=0) - log_s
+
+    @torch.inference_mode()
+    def predict(params, packed, player, rank) -> np.ndarray:
+        check_model(params, cfg)
+        _check_kind(params, quant)
+        return serve(laps, device, net, params, packed, player, rank)
 
     predict.device = device
     return predict

@@ -13,9 +13,18 @@ card, the plain version on the CPU) -> conv stack in ``cfg.compute_dtype``
 (``cudacheck.stage_d2h``) is the forward's one synchronisation point. Each
 forward carries its ``device``; inputs already staged there as tensors
 pass straight through (the engine stages them under ``DEEPGO_XLACHECK=1``).
+
+Every forward here and in ``models/quant.py`` runs through ``serve``, in
+three back-to-back hot spans a call (``obs.spans.hot_laps``, a
+``hot_span`` block each while a profiler capture runs): ``serve.h2d``
+(the inputs onto the device), ``serve.net`` (expansion, network and
+log-softmax, as they are enqueued) and ``serve.d2h`` (the host waiting
+for the device, then the copy back).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 from .. import NUM_POINTS, resolve_device
 from ..analysis.cudacheck import place, stage_d2h
 from ..experiments import checkpoint as ckpt
+from ..obs.spans import capturing, hot_laps, hot_span
 from ..ops import expand_planes, expand_planes_sym
 from ..ops.augment import _TARGET_MAP_NP, NUM_SYMMETRIES, table
 from . import convert, policy_cnn, value_cnn
@@ -42,6 +52,47 @@ def inputs_on(device: torch.device, packed, player, rank
     or tensors staged on ``device`` already, -> tensors on ``device``."""
     return (_on(device, packed, np.uint8), _on(device, player, np.int32),
             _on(device, rank, np.int32))
+
+
+def serve_laps() -> hot_laps:
+    """``serve``'s spans, made once per forward."""
+    return hot_laps("serve.h2d", "serve.net", "serve.d2h")
+
+
+def serve(laps: hot_laps, device: torch.device, net, params, packed, player,
+          rank):
+    """One serving call: ``net(params, staged)`` on the inputs put on
+    ``device``, its result (a tensor, or a dict of them) back on the host
+    as numpy, in the spans ``serve.h2d``, ``serve.net`` and ``serve.d2h``.
+    ``staged`` is a list holding the (packed, player, rank) tensors, which
+    the net pops: they are freed once expanded, before the network runs."""
+    if capturing():
+        with hot_span("serve.h2d"):
+            staged = [inputs_on(device, packed, player, rank)]
+        with hot_span("serve.net"):
+            out = net(params, staged)
+        with hot_span("serve.d2h"):
+            return _to_host(out)
+    stamps = [time.perf_counter()]
+    try:
+        staged = [inputs_on(device, packed, player, rank)]
+        stamps.append(time.perf_counter())
+        out = net(params, staged)
+        stamps.append(time.perf_counter())
+        out = _to_host(out)
+    except BaseException:
+        stamps.append(time.perf_counter())
+        laps.failed(stamps)
+        raise
+    stamps.append(time.perf_counter())
+    laps.observe(stamps)
+    return out
+
+
+def _to_host(out):
+    if isinstance(out, dict):
+        return {k: stage_d2h(v) for k, v in out.items()}
+    return stage_d2h(out)
 
 
 def check_model(params, cfg) -> None:
@@ -81,12 +132,12 @@ def log_policy_rows(params: policy_cnn.PolicyCNN, planes: torch.Tensor,
     return policy_cnn.log_policy(params, torch.cat([planes, pad]))[:b]
 
 
-def _forward_log_probs(cfg, device):
-    def log_probs(params: policy_cnn.PolicyCNN, packed, player, rank
+def _log_probs_net(cfg, device):
+    """The log-prob forward on inputs staged on ``device`` (``serve``'s
+    net)."""
+    def log_probs(params: policy_cnn.PolicyCNN, staged: list
                   ) -> torch.Tensor:
-        check_model(params, cfg)
-        planes = expand_planes(*inputs_on(device, packed, player, rank),
-                               dtype=cfg.torch_dtype)
+        planes = expand_planes(*staged.pop(), dtype=cfg.torch_dtype)
         return log_policy_rows(params, planes,
                                conv_rows(planes.shape[0], device))
 
@@ -101,11 +152,13 @@ def make_log_prob_fn(cfg: policy_cnn.ModelConfig, device="cuda"):
     This is the raw row-independent forward the serving engine batches:
     it must never grow a cross-batch term."""
     device = resolve_device(device)
-    forward = _forward_log_probs(cfg, device)
+    laps = serve_laps()
+    net = _log_probs_net(cfg, device)
 
     @torch.inference_mode()
     def log_probs(params, packed, player, rank) -> np.ndarray:
-        return stage_d2h(forward(params, packed, player, rank))
+        check_model(params, cfg)
+        return serve(laps, device, net, params, packed, player, rank)
 
     log_probs.device = device
     return log_probs
@@ -119,15 +172,19 @@ def make_policy_fn(cfg: policy_cnn.ModelConfig, top_k: int = 5,
     Moves are flat 0-based indices (19*x + y), matching the training
     target; ``top_probs`` are descending."""
     device = resolve_device(device)
-    forward = _forward_log_probs(cfg, device)
+    laps = serve_laps()
+    log_probs = _log_probs_net(cfg, device)
+
+    def net(params, staged: list) -> dict:
+        logp = log_probs(params, staged)
+        top_probs, top_moves = torch.topk(logp.exp(), top_k, dim=-1)
+        return {"log_probs": logp, "top_moves": top_moves.to(torch.int32),
+                "top_probs": top_probs}
 
     @torch.inference_mode()
     def predict(params, packed, player, rank) -> dict:
-        logp = forward(params, packed, player, rank)
-        top_probs, top_moves = torch.topk(logp.exp(), top_k, dim=-1)
-        return {"log_probs": stage_d2h(logp),
-                "top_moves": stage_d2h(top_moves.to(torch.int32)),
-                "top_probs": stage_d2h(top_probs)}
+        check_model(params, cfg)
+        return serve(laps, device, net, params, packed, player, rank)
 
     predict.device = device
     return predict
@@ -145,21 +202,23 @@ def make_sym_policy_fn(cfg: policy_cnn.ModelConfig, device="cuda"):
     (``models/quant.make_fused_sym_policy_fn``), which averages in log
     space; this is the reference it is tested against."""
     device = resolve_device(device)
+    laps = serve_laps()
     tmap = table(_TARGET_MAP_NP, device)  # (8, 361) inverse tables
 
-    @torch.inference_mode()
-    def predict(params, packed, player, rank) -> np.ndarray:
-        check_model(params, cfg)
-        packed, player, rank = inputs_on(device, packed, player, rank)
-        b = packed.shape[0]
-        planes = expand_planes_sym(packed, player, rank,
-                                   symmetries=NUM_SYMMETRIES,
+    def net(params, staged: list) -> torch.Tensor:
+        planes = expand_planes_sym(*staged.pop(), symmetries=NUM_SYMMETRIES,
                                    dtype=cfg.torch_dtype)
+        b = planes.shape[0] // NUM_SYMMETRIES
         probs = F.softmax(params(planes).float(), dim=-1)
         probs = probs.reshape(NUM_SYMMETRIES, b, NUM_POINTS)
         # map view k's distribution back: orig point p sits at tmap[k, p]
         back = torch.gather(probs, 2, tmap[:, None, :].expand_as(probs))
-        return stage_d2h(torch.log(back.mean(dim=0) + 1e-30))
+        return torch.log(back.mean(dim=0) + 1e-30)
+
+    @torch.inference_mode()
+    def predict(params, packed, player, rank) -> np.ndarray:
+        check_model(params, cfg)
+        return serve(laps, device, net, params, packed, player, rank)
 
     predict.device = device
     return predict
@@ -172,14 +231,17 @@ def make_value_fn(cfg: value_cnn.ValueConfig, device="cuda"):
     ``ValueCNN`` of ``cfg`` on ``device``, a float32 sigmoid. Row-
     independent, so the serving engine batches it unchanged."""
     device = resolve_device(device)
+    laps = serve_laps()
+
+    def net(params, staged: list) -> torch.Tensor:
+        planes = expand_planes(*staged.pop(), dtype=cfg.torch_dtype)
+        return torch.sigmoid(params(planes))
 
     @torch.inference_mode()
     def win_prob(params: value_cnn.ValueCNN, packed, player, rank
                  ) -> np.ndarray:
         check_model(params, cfg)
-        planes = expand_planes(*inputs_on(device, packed, player, rank),
-                               dtype=cfg.torch_dtype)
-        return stage_d2h(torch.sigmoid(params(planes)))
+        return serve(laps, device, net, params, packed, player, rank)
 
     win_prob.device = device
     return win_prob

@@ -15,7 +15,8 @@ peak).
 from .registry import (Counter, Gauge, Histogram,  # noqa: F401
                        MetricsRegistry, get_registry)
 from .spans import (add_span_listener, attach_context,  # noqa: F401
-                    capture_context, current_span_id, get_trace_sink,
+                    capture_context, capturing, current_span_id,
+                    get_trace_sink, hot_laps, hot_range, hot_span,
                     remove_span_listener, set_trace_sink, span, trace_to)
 from .tracing import (TraceContext, TraceRecorder,  # noqa: F401
                       configure_tracing, disable_tracing,

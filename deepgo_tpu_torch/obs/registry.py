@@ -153,6 +153,16 @@ class _HistSeries:
         self.vmin = float("inf")
         self.vmax = float("-inf")
 
+    def add(self, i: int, value: float) -> None:
+        """Count ``value`` into bucket ``i`` (the caller holds the lock)."""
+        self.counts[i] += 1
+        self.total += 1
+        self.sum += value
+        if value < self.vmin:
+            self.vmin = value
+        if value > self.vmax:
+            self.vmax = value
+
 
 class Histogram(Metric):
     """Fixed-bucket distribution per label set.
@@ -181,11 +191,27 @@ class Histogram(Metric):
             s = self._series.get(key)
             if s is None:
                 s = self._series[key] = _HistSeries(len(self.buckets))
-            s.counts[i] += 1
-            s.total += 1
-            s.sum += value
-            s.vmin = min(s.vmin, value)
-            s.vmax = max(s.vmax, value)
+            s.add(i, value)
+
+    def observer(self, **labels):
+        """``observe`` bound to one label set, for a hot path: the label
+        key is built once, and the series looked up at the first call
+        only (under the lock, so it never shows empty)."""
+        key = _label_key(labels)
+        buckets, lock, series = self.buckets, self._lock, self._series
+        s = None
+
+        def observe(value: float) -> None:
+            nonlocal s
+            i = bisect.bisect_left(buckets, value)
+            with lock:
+                if s is None:
+                    s = series.get(key)
+                    if s is None:
+                        s = series[key] = _HistSeries(len(buckets))
+                s.add(i, value)
+
+        return observe
 
     def time(self, clock=None, **labels):
         """Context manager observing the wrapped block's duration."""

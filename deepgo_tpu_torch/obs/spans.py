@@ -19,7 +19,11 @@ completed span is
 
 Spans deliberately do NOT wrap the per-step hot path: a JSONL line per
 training step would be measurable overhead. Spans are for the coarse
-stages whose individual occurrences matter.
+stages whose individual occurrences matter. The hot path has the lean
+forms: ``hot_span``, the same profiler range and the same histogram and
+nothing else (no id, no context, no sink line, no listener, no NVTX);
+``hot_laps``, back-to-back hot spans whose caller reads the clock itself,
+for a per-dispatch path; ``hot_range``, the range alone.
 """
 
 from __future__ import annotations
@@ -29,7 +33,12 @@ import contextvars
 import time
 import uuid
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 from .registry import get_registry
+
+SPAN_HELP = "duration of named host spans (obs/spans.py)"
 
 # the active span id for the current execution context; threads started
 # fresh see None (their spans root a new tree), which is the honest
@@ -141,8 +150,6 @@ def _profiler_range(name: str):
     timeline. Outside a capture the range costs one profiler-op call,
     microseconds against the coarse regions spans mark."""
     global _nvtx
-    import torch
-
     if _nvtx is None:
         _nvtx = torch.cuda.is_available() and _nvtx_works(torch)
     with contextlib.ExitStack() as stack:
@@ -190,10 +197,8 @@ def span(name: str, registry=None, **fields):
         _current.reset(token)
         duration = time.monotonic() - s.t0_mono
         reg = registry or get_registry()
-        reg.histogram(
-            "deepgo_span_seconds",
-            "duration of named host spans (obs/spans.py)",
-        ).observe(duration, name=name, status=status)
+        reg.histogram("deepgo_span_seconds", SPAN_HELP).observe(
+            duration, name=name, status=status)
         sink = _trace_sink
         if sink is not None or _listeners:
             record = {
@@ -219,3 +224,97 @@ def span(name: str, registry=None, **fields):
                     fn(dict(record))
                 except Exception:  # noqa: BLE001 — observers never raise out
                     pass
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def hot_range(name: str):
+    """The profiler range of a hot region (``hot_span``'s, or alone where
+    nothing times the region): the ``record_function`` range ``span``
+    opens, while a profiler capture runs; outside one a null context
+    (torch's own flag says so for a tenth of a microsecond, where opening
+    a range costs several through the dispatcher)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
+class hot_span:
+    """The hot-path form of ``span``: ``with hot_span("loader.sample"): ...``.
+
+    It opens ``hot_range(name)``, so a capture shows the region by name
+    over the kernels it launched. On exit it observes its
+    ``time.perf_counter()`` duration into ``deepgo_span_seconds{name,
+    status}`` ("error" when the body raised; the exception propagates).
+    Given ``histogram`` (a region the port already times), it observes
+    into that one instead, under ``labels``, and only a region that
+    returned, as the timer it replaces did. Nothing else: no id, no
+    context variable, no sink line, no listener, no NVTX range."""
+
+    __slots__ = ("_name", "_histogram", "_labels", "_range", "_t0")
+
+    def __init__(self, name: str, histogram=None, **labels):
+        self._name = name
+        self._histogram = histogram
+        self._labels = labels
+
+    def __enter__(self):
+        self._range = hot_range(self._name)
+        self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, kind, value, traceback):
+        duration = time.perf_counter() - self._t0
+        self._range.__exit__(kind, value, traceback)
+        if self._histogram is None:
+            get_registry().histogram("deepgo_span_seconds", SPAN_HELP).observe(
+                duration, name=self._name,
+                status="ok" if kind is None else "error")
+        elif kind is None:
+            self._histogram.observe(duration, **self._labels)
+        return False
+
+
+class hot_laps:
+    """Back-to-back hot spans on a per-dispatch path, where a ``hot_span``
+    block each costs too much host time: the caller reads the clock
+    (``time.perf_counter()``) at each boundary and hands the stamps over
+    once, ``names[i]`` running from stamp ``i`` to stamp ``i + 1``.
+
+    Made once per path, it binds each name's ``deepgo_span_seconds{name,
+    status="ok"}`` series in the registry current then, as
+    ``AsyncLoader`` binds its families: a pass costs one call and an
+    observation a span. While a profiler capture runs (``capturing()``)
+    the caller opens ``hot_span`` blocks of the same names instead, for
+    their ranges."""
+
+    __slots__ = ("names", "_spans", "_ok")
+
+    def __init__(self, *names: str):
+        self.names = names
+        self._spans = get_registry().histogram("deepgo_span_seconds",
+                                               SPAN_HELP)
+        self._ok = tuple(self._spans.observer(name=n, status="ok")
+                         for n in names)
+
+    def observe(self, stamps) -> None:
+        """A pass that returned: ``len(names) + 1`` stamps."""
+        t0 = stamps[0]
+        for ok, t1 in zip(self._ok, stamps[1:]):
+            ok(t1 - t0)
+            t0 = t1
+
+    def failed(self, stamps) -> None:
+        """A pass whose last span raised: the spans before it as "ok", and
+        that one as "error"."""
+        self.observe(stamps[:-1])
+        self._spans.observe(stamps[-1] - stamps[-2],
+                            name=self.names[len(stamps) - 2], status="error")
+
+
+def capturing() -> bool:
+    """Whether a profiler capture runs (``hot_laps``' callers switch to
+    ``hot_span`` blocks then)."""
+    return _autograd_profiler._is_profiler_enabled

@@ -24,9 +24,11 @@ with ``torch.autograd.grad``. Tensor parallelism lives in the network
 Each part of a step runs under a ``torch.profiler.record_function`` label
 (``train.unwire``, ``train.augment``, ``train.expand``, ``train.forward``,
 ``train.loss``, ``train.backward``, ``train.allreduce``,
-``train.optimizer``), so a profile
-attributes the card's kernels to the parts; a label costs a few
-microseconds on the host when no profiler runs.
+``train.optimizer``), so a profile attributes the card's kernels to the
+parts; a label costs a few microseconds on the host when no profiler
+runs. The parts sit inside one ``train.step`` range (``obs.hot_range``,
+opened only while a capture runs), which marks each step's bounds in a
+capture.
 
 Batches are dicts of tensors on the model's device:
   packed  (B, 9, 19, 19) uint8, or (B, 1625) uint8 under wire="nibble"
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..models import policy_cnn
+from ..obs.spans import hot_range
 from ..ops import expand_planes
 from ..ops.augment import augment_batch
 from ..ops.wire import nibble_unpack
@@ -107,38 +110,40 @@ def average_gradients(grads, loss, group):
 
 def _one_step(model, opt_state, batch, cfg, optimizer, augment, anchor,
               wire, group):
-    with record_function("train.unwire"):
-        packed = _unwire(batch["packed"], wire)
-    target = batch["target"]
-    if augment:
-        with record_function("train.augment"):
-            packed, target = augment_batch(packed, target, batch["sym"])
-    with record_function("train.expand"):
-        planes = _planes(batch, packed, cfg)
-    params = list(model.parameters())
-    with torch.enable_grad():
-        with record_function("train.forward"):
-            logits = model(planes)
-        with record_function("train.loss"):
-            loss = nll_from_logits(logits, target)
-            if anchor is not None:
-                # KL-anchored fine-tune: add weight * CE(anchor_probs,
-                # model), whose gradients are KL(anchor || model)'s. The
-                # reported loss includes the anchor term.
-                a_model, weight = anchor
-                with torch.no_grad():
-                    a_prob = F.softmax(a_model(planes).float(), dim=-1)
-                logp = F.log_softmax(logits.float(), dim=-1)
-                loss = loss + weight * (-(a_prob * logp).sum(dim=-1).mean())
-        with record_function("train.backward"):
-            grads = list(torch.autograd.grad(loss, params))
-    loss = loss.detach()
-    if group is not None:
-        with record_function("train.allreduce"):
-            grads, loss = average_gradients(grads, loss, group)
-    with record_function("train.optimizer"):
-        opt_state = optimizer.update(model, grads, opt_state)
-    return opt_state, loss
+    with hot_range("train.step"):
+        with record_function("train.unwire"):
+            packed = _unwire(batch["packed"], wire)
+        target = batch["target"]
+        if augment:
+            with record_function("train.augment"):
+                packed, target = augment_batch(packed, target, batch["sym"])
+        with record_function("train.expand"):
+            planes = _planes(batch, packed, cfg)
+        params = list(model.parameters())
+        with torch.enable_grad():
+            with record_function("train.forward"):
+                logits = model(planes)
+            with record_function("train.loss"):
+                loss = nll_from_logits(logits, target)
+                if anchor is not None:
+                    # KL-anchored fine-tune: add weight * CE(anchor_probs,
+                    # model), whose gradients are KL(anchor || model)'s. The
+                    # reported loss includes the anchor term.
+                    a_model, weight = anchor
+                    with torch.no_grad():
+                        a_prob = F.softmax(a_model(planes).float(), dim=-1)
+                    logp = F.log_softmax(logits.float(), dim=-1)
+                    loss = loss + weight * (
+                        -(a_prob * logp).sum(dim=-1).mean())
+            with record_function("train.backward"):
+                grads = list(torch.autograd.grad(loss, params))
+        loss = loss.detach()
+        if group is not None:
+            with record_function("train.allreduce"):
+                grads, loss = average_gradients(grads, loss, group)
+        with record_function("train.optimizer"):
+            opt_state = optimizer.update(model, grads, opt_state)
+        return opt_state, loss
 
 
 def _check_cfg(model, cfg) -> None:

@@ -2,10 +2,9 @@
 
 The port of ``deepgo_tpu/utils/profiling.py`` on ``torch.profiler``: a
 context manager that captures a host and device trace of a region into a
-Chrome trace file, plus annotation helpers for named regions. Host-side
-spans (``deepgo_tpu_torch.obs.spans``) open the same ``record_function``
-ranges, so a capture taken here shows the obs stages on the host timeline
-above the kernels they launched.
+Chrome trace file. Host-side spans (``deepgo_tpu_torch.obs.spans``) open
+``record_function`` ranges, so a capture taken here shows the obs stages
+on the host timeline above the kernels they launched.
 """
 
 from __future__ import annotations
@@ -82,12 +81,3 @@ def trace(out_dir: str | None, metrics=None):
         prof.stop_trace()
         prof.export_chrome_trace(os.path.join(out_dir, TRACE_FILE))
 
-
-# named host regions in the trace
-annotate = torch.profiler.record_function
-
-
-def step_annotation(name: str, step_num: int):
-    """A per-step marker, ``name#step_num`` on the host timeline (the
-    form ``jax.profiler.StepTraceAnnotation`` shows)."""
-    return torch.profiler.record_function(f"{name}#{step_num}")
