@@ -22,7 +22,16 @@ then, each phase failing the run on the first disagreement:
    ragged) and on a sliced input (``packed[1:]`` of 513 boards, at an odd
    address); at S = 1 the sym kernel also equals the expansion kernel.
    Both are timed with CUDA events beside their bounds: one call, and per
-   launch over 20 back-to-back launches.
+   launch over 20 back-to-back launches. Then the convolution epilogue
+   (``ops.bias_relu``: per-position bias + ReLU, forward and backward
+   kernels) at the main paths' shapes (``large`` B = 1024, C = 256;
+   ``full`` B = 8192 and 64, C = 128; bf16): forward and dX bitwise the
+   plain version, the bias gradient within one bf16 spacing and bitwise
+   the same on a second run; each kernel timed beside its bytes bound and
+   the plain version's time (the PyTorch ops the network ran before,
+   also printed as ``library_ms``); and the launch counts of a ``large``
+   train step (13 forwards, 13 backwards) and of a ``full`` serving
+   forward (12 forwards, no backward).
 4. f32 path: ``policy_engine`` over the ``full`` config (12 layers x 128
    channels, bf16, random weights from a seed) answers bursts of concurrent
    single-board requests from 8 threads that land on every ladder rung.
@@ -351,7 +360,9 @@ from deepgo_tpu_torch.models.serving import (conv_rows, load_policy,
                                              load_value, make_log_prob_fn,
                                              make_value_fn)
 from deepgo_tpu_torch.obs import configure_flight
-from deepgo_tpu_torch.ops import _build, cuda_expand, expand_planes
+from deepgo_tpu_torch.ops import (_build, cuda_epilogue, cuda_expand,
+                                  expand_planes)
+from deepgo_tpu_torch.ops import epilogue as plain_epilogue
 from deepgo_tpu_torch.ops import expand as plain_expand
 from deepgo_tpu_torch.parallel import distributed, reshard
 from deepgo_tpu_torch.search import SearchConfig
@@ -383,6 +394,10 @@ RUNGS = ((32, 8), (128, 8))
 # (batch, symmetries) with S * B * 361 not a multiple of 8
 RAGGED = ((7, 1), (7, 5), (1, 2))
 TRAIN_BATCHES = (256, 1024)  # the expansion kernel at the train steps' B
+# (config, B, C) of the epilogue on the main paths: the large train cell,
+# the full bulk-inference cell and a 64-row serving forward
+EPILOGUE_SHAPES = (("large", 1024, 256), ("full", 8192, 128),
+                   ("full", 64, 128))
 SLICED = 512        # boards of packed[1:] of SLICED + 1: an odd address
 BACK_TO_BACK = 20   # launches between one pair of events, for per-launch ms
 # Burst sizes of the engine paths: each lands on one rung of the default
@@ -741,6 +756,125 @@ def phase_sym_kernel(rng, extra) -> list[dict]:
     return rows
 
 
+def epilogue_inputs(gen: torch.Generator, b: int, c: int):
+    """bf16 x (with zeros, negative zeros and sums that tie at 0) and a
+    gradient dy, channels-last (b, c, 19, 19), and a float32 bias."""
+    x = torch.randn(b, 19, 19, c, generator=gen, device="cuda").bfloat16()
+    x.view(-1)[::7] = 0.0
+    x.view(-1)[3::11] = -0.0
+    bias = 0.5 * torch.randn(c, 19, 19, generator=gen, device="cuda")
+    bias.view(-1)[::5] = -0.0
+    x[::3] = -bias.bfloat16().permute(1, 2, 0)  # x + bias == 0 exactly
+    dy = torch.randn(b, 19, 19, c, generator=gen, device="cuda").bfloat16()
+    return x.permute(0, 3, 1, 2), bias, dy.permute(0, 3, 1, 2)
+
+
+def bias_grad_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """One bf16 spacing at the larger value, or at 1e-5 of the largest
+    gradient nearer 0 (tests/test_torch_epilogue.py's _same_sum)."""
+    floor = 1e-5 * want.abs().max()
+    at = torch.maximum(torch.maximum(got.abs(), want.abs()), floor)
+    spacing = torch.ldexp(torch.ones_like(at), torch.frexp(at)[1] - 8)
+    return bool(((got - want).abs() <= torch.maximum(spacing, floor)).all())
+
+
+def epilogue_row(what, kernel_fn, plain_fn, moved: int, shape: str) -> dict:
+    kernel = time_ms(kernel_fn)
+    launch_ms = device_ms(kernel_fn, BACK_TO_BACK, 10)
+    plain = time_ms(plain_fn, runs=30)
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    row = {"shape": shape, "exact": True, "max_abs_err": 0.0,
+           "ms": kernel["ms"], "launch_ms": launch_ms,
+           "wall_ms": kernel["wall_ms"], "plain_ms": plain["ms"],
+           "library_ms": plain["ms"], "bound_ms": bound, "bound_by": "bytes",
+           "share_of_bound": bound / kernel["ms"]}
+    print(f"{what} {shape}: {kernel['ms'] * 1e3:.1f} us device, "
+          f"{launch_ms * 1e3:.1f} us per launch of {BACK_TO_BACK} "
+          f"({kernel['wall_ms'] * 1e3:.1f} us wall), plain (the PyTorch "
+          f"ops) {plain['ms'] * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
+          f"(bytes, {row['share_of_bound']:.0%})", flush=True)
+    return row
+
+
+def epilogue_launches() -> dict:
+    """The epilogue kernels' launches in one ``large`` train step at
+    B = 1024 and one ``full`` serving forward of 64 boards."""
+    gen = np.random.default_rng(SEED + 2)
+    cfg = policy_cnn.CONFIGS["large"]
+    model = policy_cnn.init(torch.Generator().manual_seed(SEED), cfg)
+    optimizer = sgd(TRAIN_RATE)
+    step = make_train_step(cfg, optimizer)
+    packed, player, rank = random_records(gen, 1024)
+    batch = {"packed": packed, "player": player, "rank": rank,
+             "target": gen.integers(0, 361, 1024).astype(np.int32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    state = optimizer.init(model)
+    step(model, state, batch)
+    torch.cuda.synchronize()
+    cuda_epilogue.reset_launches()
+    step(model, state, batch)
+    torch.cuda.synchronize()
+    train = [cuda_epilogue.launches, cuda_epilogue.bwd_launches]
+    check(train == [13, 13], f"large train step: 13 + 13 epilogue "
+          f"launches, got {train}")
+    del model, state
+    fcfg = policy_cnn.CONFIGS["full"]
+    net = policy_cnn.init(torch.Generator().manual_seed(SEED), fcfg)
+    forward = make_log_prob_fn(fcfg)
+    boards = random_records(gen, 64)
+    forward(net, *boards)
+    cuda_epilogue.reset_launches()
+    forward(net, *boards)
+    serve = [cuda_epilogue.launches, cuda_epilogue.bwd_launches]
+    check(serve == [12, 0], f"full serving forward: 12 + 0 epilogue "
+          f"launches, got {serve}")
+    out = {"train_large_step": {"forward": train[0], "backward": train[1]},
+           "serve_full_forward": {"forward": serve[0],
+                                  "backward": serve[1]}}
+    print("epilogue launches: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_epilogue() -> dict:
+    """The epilogue kernels against the plain version at EPILOGUE_SHAPES,
+    timed, and their launches on the train and serving paths."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fwd, bwd = [], []
+    for name, b, c in EPILOGUE_SHAPES:
+        x, bias, dy = epilogue_inputs(gen, b, c)
+        shape = f"{name} B={b} C={c} bfloat16"
+        y = cuda_epilogue.bias_relu_cuda(x, bias, True)
+        dx, db = cuda_epilogue.bias_relu_backward_cuda(dy, y)
+        _, db_again = cuda_epilogue.bias_relu_backward_cuda(dy, y)
+        xg, bg = x.detach().requires_grad_(), bias.detach().requires_grad_()
+        want = plain_epilogue.bias_relu(xg, bg, True)
+        dx_want, db_want = torch.autograd.grad(want, (xg, bg), dy,
+                                               retain_graph=True)
+        torch.cuda.synchronize()
+        check(torch.equal(y, want.detach()), f"epilogue forward != plain "
+              f"at {shape}")
+        check(torch.equal(dx, dx_want), f"epilogue dX != plain at {shape}")
+        check(bias_grad_close(db, db_want), f"epilogue bias gradient not "
+              f"within a bf16 spacing of plain at {shape}")
+        check(torch.equal(db, db_again), f"epilogue bias gradient differs "
+              f"run to run at {shape}")
+        act = b * 361 * c * 2
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        slabs = cuda_epilogue.plan(b, c, 2, sms)[2]
+        fwd.append(epilogue_row(
+            "epilogue forward", lambda: cuda_epilogue.bias_relu_cuda(
+                x, bias, True),
+            lambda: plain_epilogue.bias_relu(x, bias, True), 2 * act, shape))
+        bwd.append(epilogue_row(
+            "epilogue backward",
+            lambda: cuda_epilogue.bias_relu_backward_cuda(dy, y),
+            lambda: torch.autograd.grad(want, (xg, bg), dy,
+                                        retain_graph=True),
+            3 * act + 2 * slabs * 361 * c * 4, shape) | {"slabs": slabs})
+        del x, bias, dy, y, dx, db, db_again, xg, bg, want, dx_want, db_want
+    return {"forward": fwd, "backward": bwd, "launches": epilogue_launches()}
+
+
 def run_bursts(engine, packed, player, rank, tiers=None, on_submit=None):
     """Each burst's requests submitted together from THREADS threads; the
     next burst starts when every future of this one resolved. ``tiers``
@@ -1055,6 +1189,8 @@ def _kernel_group(name: str) -> str:
     lower = name.lower()
     if "expand_planes" in lower:  # one kernel body: plain, or gather + views
         return "expansion kernel"
+    if "bias_relu" in lower or "bias_grad" in lower:
+        return "epilogue kernels"
     if "memcpy htod" in lower:
         return "h2d copy"
     if "memcpy dtoh" in lower:
@@ -5433,9 +5569,10 @@ def campaign_numbers(runs: dict, learner_ms: dict) -> dict:
     }
 
 
-def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
+def kernel_entry(name, replaces, launches_by_path, rows, top,
+                 source="expand.cu") -> dict:
     return {"name": name, "route": "cuda",
-            "source": "deepgo_tpu_torch/ops/csrc/expand.cu",
+            "source": f"deepgo_tpu_torch/ops/csrc/{source}",
             "replaces": replaces,
             "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path,
@@ -5444,8 +5581,11 @@ def kernel_entry(name, replaces, launches_by_path, rows, top) -> dict:
             "ms": top["ms"], "kernel_ms": top["ms"],
             "launch_ms": top["launch_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "share_of_bound": top["share_of_bound"], "library_ms": None,
-            "shape": f"B={top['batch']} S={top['symmetries']} {top['dtype']}",
+            "share_of_bound": top["share_of_bound"],
+            "library_ms": top.get("library_ms"),
+            "shape": top.get("shape") or (f"B={top['batch']} "
+                                          f"S={top['symmetries']} "
+                                          f"{top['dtype']}"),
             "by_shape": rows}
 
 
@@ -5527,6 +5667,7 @@ def main() -> int:
     extra = np.random.default_rng(SEED + 1)
     kernel_rows = phase_kernel(rng, extra)
     sym_rows = phase_sym_kernel(rng, extra)
+    epilogue = phase_epilogue()
     expand_paths, sym_paths, summary = {}, {}, {}
     if 4 in phases:
         path = phase_main_path(rng)
@@ -5638,6 +5779,11 @@ def main() -> int:
         kernel_entry("expand_planes_sym",
                      "deepgo_tpu/ops/pallas_expand.py:90",
                      sym_paths, sym_rows, top_row(sym_rows, 8)),
+        *(kernel_entry(f"bias_relu_{half}", None,
+                       {path: n[half] for path, n in
+                        epilogue["launches"].items()},
+                       epilogue[half], epilogue[half][0], "epilogue.cu")
+          for half in ("forward", "backward")),
     ]}
     summary["seconds"] = time.perf_counter() - t_start
     print("summary: " + json.dumps(summary), flush=True)

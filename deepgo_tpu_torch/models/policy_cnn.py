@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .. import BOARD_SIZE, NUM_POINTS, resolve_device
+from .. import BOARD_SIZE, NUM_POINTS, ops, resolve_device
 from ..analysis.cudacheck import place
 from ..features import NUM_PLANES
 
@@ -97,18 +97,19 @@ CONFIGS = {
 
 class PositionBiasConv(nn.Module):
     """A SAME-padded convolution without bias, then a bias per output
-    channel and board point: ``weight`` (c_out, c_in, k, k), ``bias``
-    (c_out, 19, 19)."""
+    channel and board point and, with ``relu``, ReLU: ``weight`` (c_out,
+    c_in, k, k), ``bias`` (c_out, 19, 19). The epilogue is
+    ``ops.bias_relu``: on the card one hand-written kernel each way."""
 
     def __init__(self, k: int, c_in: int, c_out: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, k, k))
         self.bias = nn.Parameter(torch.zeros(c_out, BOARD_SIZE, BOARD_SIZE))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         x = F.conv2d(x, self.weight.to(x.dtype),
                      padding=self.weight.shape[-1] // 2)
-        return x + self.bias.to(x.dtype)[None]
+        return ops.bias_relu(x, self.bias, relu)
 
 
 class PolicyCNN(nn.Module):
@@ -153,8 +154,7 @@ class PolicyCNN(nn.Module):
 
 def _conv_layer(layer: nn.Module, x: torch.Tensor, relu: bool
                 ) -> torch.Tensor:
-    x = layer(x)
-    return F.relu(x) if relu else x
+    return layer(x, relu)
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,

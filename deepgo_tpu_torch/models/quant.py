@@ -81,14 +81,15 @@ class QuantConv(nn.Module):
         self.register_buffer("bias",
                              torch.zeros(c_out, BOARD_SIZE, BOARD_SIZE))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         y = F.conv2d(x, self.w_q.to(x.dtype), padding=self.w_q.shape[-1] // 2)
         # the dequant epilogue: an exact power-of-two shift per output
         # channel. The conv has already rounded to x.dtype (the JAX conv
         # returns float32 and scales before its downcast); scaling by a
         # power of two commutes with that rounding, barring subnormals.
         y = y * self.w_scale.to(x.dtype)[None, :, None, None]
-        return y + self.bias.to(x.dtype)[None]
+        y = y + self.bias.to(x.dtype)[None]
+        return F.relu(y) if relu else y
 
 
 class QuantPolicyCNN(policy_cnn.PolicyCNN):

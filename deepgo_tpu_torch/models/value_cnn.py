@@ -90,8 +90,8 @@ class ValueCNN(nn.Module):
         dtype = self.cfg.torch_dtype
         x = planes.permute(0, 3, 1, 2).to(dtype)
         for layer in self.layers:
-            x = F.relu(layer(x))
-        x = F.relu(self.head_conv(x))
+            x = layer(x, relu=True)
+        x = self.head_conv(x, relu=True)
         x = x.reshape(x.shape[0], NUM_POINTS)
         x = F.relu(F.linear(x, self.dense1.weight.to(dtype),
                             self.dense1.bias.to(dtype)))

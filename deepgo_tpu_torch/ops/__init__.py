@@ -1,4 +1,5 @@
-"""Device-side ops: packed-record expansion, plain and as CUDA kernels.
+"""Device-side ops: packed-record expansion and the convolution epilogue,
+plain and as CUDA kernels.
 
 Each op picks its implementation from where the tensor lies, as the port of
 ``deepgo_tpu.ops.get_expand_fn``'s choice: a CPU tensor goes to the plain
@@ -10,8 +11,10 @@ from __future__ import annotations
 
 import torch
 
+from . import epilogue as _plain_epilogue
 from . import expand as _plain
 from .augment import NUM_SYMMETRIES
+from .cuda_epilogue import BiasReLU, bias_relu_cuda
 from .cuda_expand import expand_planes_cuda, expand_planes_sym_cuda
 
 
@@ -39,3 +42,21 @@ def expand_planes_sym(packed: torch.Tensor, player: torch.Tensor,
         return _plain.expand_planes_sym(packed, player, rank,
                                         symmetries=symmetries, dtype=dtype)
     raise ValueError(f"no expansion for tensors on {packed.device}")
+
+
+def bias_relu(x: torch.Tensor, bias: torch.Tensor, relu: bool = True
+              ) -> torch.Tensor:
+    """x (B, C, 19, 19) channels-last, bias (C, 19, 19) float32 ->
+    ``relu(x + bias.to(x.dtype))`` (``relu=False``: the sum alone). On the
+    card, with a gradient to take, one autograd node over the forward and
+    backward kernels; without one (``inference_mode``, ``no_grad``, nothing
+    requiring grad) the forward kernel alone, with no autograd node's host
+    cost."""
+    if x.device.type == "cuda":
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or bias.requires_grad):
+            return BiasReLU.apply(x, bias, relu)
+        return bias_relu_cuda(x, bias, relu)
+    if x.device.type == "cpu":
+        return _plain_epilogue.bias_relu(x, bias, relu)
+    raise ValueError(f"no epilogue for tensors on {x.device}")

@@ -23,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -30,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], object] = {}
 # name -> nvcc's output (ptxas register / shared-memory report) of the
 # build this process ran; empty for a library found already built
 build_log: dict[str, str] = {}
@@ -96,10 +99,41 @@ def build(names=None) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed,
+    together with every other source that needs a build (in parallel, so
+    a process pays one build's time)."""
     lib = _libs.get(name)
     if lib is None:
-        path = build([name])[name]
+        path = build()[name]
         with _lock:
             lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
     return lib
+
+
+def function(lib: str, name: str, argtypes: list):
+    """The C launcher ``name`` of ``csrc/<lib>.cu``, typed: ``argtypes``
+    in, a ``cudaError_t`` as int out."""
+    fn = _functions.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[(lib, name)] = fn
+    return fn
+
+
+def launch(fn, device, args: list, what: str) -> None:
+    """Call the C launcher ``fn`` with ``args`` and the current stream of
+    CUDA ``device``, with ``device`` current; raise when it returns an
+    error (``what`` names the call)."""
+    # the raw handle of the current stream: 0.2 us a call on an H100's
+    # host, where torch.cuda.current_stream(device) builds a Stream in 6 us
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed with cudaError "
+                           f"{err} ({what})")

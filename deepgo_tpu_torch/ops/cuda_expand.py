@@ -26,7 +26,6 @@ from .augment import _PERM_NP, NUM_SYMMETRIES, table
 launches = 0      # expand kernel launches since import or the last reset
 sym_launches = 0  # sym kernel launches since import or the last reset
 _count_lock = threading.Lock()
-_launchers: dict[str, object] = {}
 _perm_tables: dict[torch.device, torch.Tensor] = {}
 _OUT_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 _ARGTYPES = {
@@ -48,13 +47,7 @@ def reset_launches() -> None:
 
 
 def _kernel(name: str = "deepgo_expand_planes"):
-    fn = _launchers.get(name)
-    if fn is None:
-        fn = getattr(_build.load("expand"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _launchers[name] = fn
-    return fn
+    return _build.function("expand", name, _ARGTYPES[name])
 
 
 def _check_inputs(packed: torch.Tensor, player: torch.Tensor,
@@ -86,16 +79,6 @@ def _check_inputs(packed: torch.Tensor, player: torch.Tensor,
     return b
 
 
-def _launch(name: str, packed: torch.Tensor, args: list, what: str) -> None:
-    launch = _kernel(name)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = launch(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {err} "
-                           f"({what})")
-
-
 def expand_planes_cuda(packed: torch.Tensor, player: torch.Tensor,
                        rank: torch.Tensor, dtype=torch.bfloat16
                        ) -> torch.Tensor:
@@ -105,9 +88,10 @@ def expand_planes_cuda(packed: torch.Tensor, player: torch.Tensor,
     b = _check_inputs(packed, player, rank, dtype)
     out = torch.empty((b, BOARD_SIZE, BOARD_SIZE, NUM_PLANES), dtype=dtype,
                       device=packed.device)
-    _launch("deepgo_expand_planes", packed,
-            [packed.data_ptr(), player.data_ptr(), rank.data_ptr(),
-             out.data_ptr(), b, _OUT_BYTES[dtype]], f"batch {b}, {dtype}")
+    args = [packed.data_ptr(), player.data_ptr(), rank.data_ptr(),
+            out.data_ptr(), b, _OUT_BYTES[dtype]]
+    _build.launch(_kernel("deepgo_expand_planes"), packed.device, args,
+                  f"batch {b}, {dtype}")
     global launches
     with _count_lock:
         launches += 1
@@ -139,10 +123,10 @@ def expand_planes_sym_cuda(packed: torch.Tensor, player: torch.Tensor,
     out = torch.empty((symmetries * b, BOARD_SIZE, BOARD_SIZE, NUM_PLANES),
                       dtype=dtype, device=packed.device)
     perm = _perm_table(packed.device)
-    _launch("deepgo_expand_planes_sym", packed,
-            [packed.data_ptr(), player.data_ptr(), rank.data_ptr(),
-             perm.data_ptr(), out.data_ptr(), b, symmetries,
-             _OUT_BYTES[dtype]], f"batch {b}, {symmetries} views, {dtype}")
+    args = [packed.data_ptr(), player.data_ptr(), rank.data_ptr(),
+            perm.data_ptr(), out.data_ptr(), b, symmetries, _OUT_BYTES[dtype]]
+    _build.launch(_kernel("deepgo_expand_planes_sym"), packed.device, args,
+                  f"batch {b}, {symmetries} views, {dtype}")
     global sym_launches
     with _count_lock:
         sym_launches += 1
