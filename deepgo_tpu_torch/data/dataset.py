@@ -15,6 +15,8 @@ Sampling schemes:
   * ``winner``   uniform over positions whose side to move went on to win;
     needs the ``winner.npy`` sidecar.
 
+``outcome_at`` reads the same sidecar as a value target per position.
+
 The port writes splits with ``DatasetWriter``, and transcribes SGF files
 into them with ``data/transcribe.py``.
 """
@@ -103,6 +105,22 @@ class GoDataset:
             if self._winner_positions.size == 0:
                 raise ValueError("no decided-game positions in this split")
         return self._winner_positions
+
+    def outcome_at(self, indices: np.ndarray, player: np.ndarray
+                   ) -> np.ndarray:
+        """(n,) float32 outcome of each position for its side to move
+        ``player``: +1 won, -1 lost, 0 where the game is undecided. Needs
+        the winner.npy sidecar."""
+        if self.winner is None:
+            raise FileNotFoundError(f"outcomes need {self.dir}/winner.npy")
+        if self.winner.shape[0] != len(self):
+            raise ValueError(f"{self.dir}/winner.npy has "
+                             f"{self.winner.shape[0]} rows for "
+                             f"{len(self)} positions")
+        winner = self.winner[indices]
+        return np.where(winner == 0, 0.0,
+                        np.where(winner == player, 1.0, -1.0)
+                        ).astype(np.float32)
 
     def batch_at(self, indices: np.ndarray):
         """Gather (packed_planes, to_move_player, rank_of_player, target).

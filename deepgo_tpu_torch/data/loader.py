@@ -77,7 +77,8 @@ def _rows(batch_size: int, shard: tuple[int, int] | None) -> slice:
 def make_step_batch(dataset: GoDataset, seed: int, step: int, batch_size: int,
                     scheme: str = "game", augment: bool = False,
                     wire: str = "packed", stack: int = 0,
-                    shard: tuple[int, int] | None = None) -> dict:
+                    shard: tuple[int, int] | None = None,
+                    outcome: bool = False) -> dict:
     """Deterministic (super)batch covering steps [step, step + max(1, stack)).
 
     Each covered step samples from its own ``step_rng``; the gather and the
@@ -96,7 +97,8 @@ def make_step_batch(dataset: GoDataset, seed: int, step: int, batch_size: int,
             sym_parts.append(rng.integers(0, 8, size=batch_size)
                              .astype(np.int32)[rows])
     batch_size = rows.stop - rows.start
-    packed, player, rank, target = dataset.batch_at(np.concatenate(idx_parts))
+    idx = np.concatenate(idx_parts)
+    packed, player, rank, target = dataset.batch_at(idx)
     if wire == "nibble":
         packed = nibble_pack_np(packed)
 
@@ -109,14 +111,19 @@ def make_step_batch(dataset: GoDataset, seed: int, step: int, batch_size: int,
              "rank": fold(rank), "target": fold(target)}
     if augment:
         batch["sym"] = fold(np.concatenate(sym_parts))
+    if outcome:
+        batch["z"] = fold(dataset.outcome_at(idx, player))
     return batch
 
 
 def make_host_batch(dataset: GoDataset, rng: np.random.Generator,
                     batch_size: int, scheme: str = "game",
-                    augment: bool = False, wire: str = "packed") -> dict:
-    packed, player, rank, target = dataset.sample_batch(rng, batch_size,
-                                                        scheme)
+                    augment: bool = False, wire: str = "packed",
+                    outcome: bool = False) -> dict:
+    """One batch of ``batch_size`` sampled positions; ``outcome=True``
+    adds each row's ``z`` (``GoDataset.outcome_at``)."""
+    idx = dataset.sample_indices(rng, batch_size, scheme)
+    packed, player, rank, target = dataset.batch_at(idx)
     if wire == "nibble":
         packed = nibble_pack_np(packed)
     batch = {"packed": packed, "player": player, "rank": rank,
@@ -124,17 +131,21 @@ def make_host_batch(dataset: GoDataset, rng: np.random.Generator,
     if augment:
         # per-sample dihedral symmetry index, applied on the device
         batch["sym"] = rng.integers(0, 8, size=batch_size).astype(np.int32)
+    if outcome:
+        batch["z"] = dataset.outcome_at(idx, player)
     return batch
 
 
 def make_host_superbatch(dataset: GoDataset, rng: np.random.Generator,
                          batch_size: int, stack: int, scheme: str = "game",
-                         augment: bool = False, wire: str = "packed") -> dict:
+                         augment: bool = False, wire: str = "packed",
+                         outcome: bool = False) -> dict:
     """One (K, B, ...) superbatch from a single K*B-position gather:
     distributed as K stacked ``make_host_batch`` results, with one memmap
     gather and one nibble pass."""
     n = batch_size * stack
-    packed, player, rank, target = dataset.sample_batch(rng, n, scheme)
+    idx = dataset.sample_indices(rng, n, scheme)
+    packed, player, rank, target = dataset.batch_at(idx)
     if wire == "nibble":
         packed = nibble_pack_np(packed)
 
@@ -146,6 +157,8 @@ def make_host_superbatch(dataset: GoDataset, rng: np.random.Generator,
     if augment:
         batch["sym"] = rng.integers(
             0, 8, size=(stack, batch_size)).astype(np.int32)
+    if outcome:
+        batch["z"] = fold(dataset.outcome_at(idx, player))
     return batch
 
 
@@ -174,6 +187,7 @@ class AsyncLoader:
         wire: str = "packed",
         device_prefetch: int = 0,
         shard: tuple[int, int] | None = None,
+        outcome: bool = False,
     ):
         """``stack=K`` (K >= 1) makes ``get()`` return (K, B, ...)
         superbatches for ``make_train_step_many``. ``wire="nibble"`` ships
@@ -186,7 +200,11 @@ class AsyncLoader:
         With ``num_threads=0`` the stream is step-indexed (``step_rng``);
         threaded mode keeps the free-running i.i.d. stream, where
         start_step only offsets the worker seeds. ``shard=(index, count)``
-        feeds data rank ``index`` its B / count rows (module docstring)."""
+        feeds data rank ``index`` its B / count rows (module docstring).
+        ``outcome=True`` adds each row's game outcome ``z`` (float32, +1
+        the side to move won, -1 lost, 0 undecided) from the split's
+        ``winner.npy``, gathered by the sampling worker; it raises here
+        without the sidecar."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shard = shard
@@ -215,6 +233,10 @@ class AsyncLoader:
         if scheme == "winner":
             # fail here, not silently inside a worker thread
             dataset.winner_positions()
+        if outcome and dataset.winner is None:
+            raise FileNotFoundError(
+                f"outcome=True needs {dataset.dir}/winner.npy")
+        self.outcome = outcome
         self.augment = augment
         self.stack = stack
         self.num_threads = num_threads
@@ -261,15 +283,16 @@ class AsyncLoader:
             batch = make_step_batch(self.dataset, self._seed, self._cursor,
                                     self.batch_size, self.scheme,
                                     self.augment, self.wire, stack=stack,
-                                    shard=self.shard)
+                                    shard=self.shard, outcome=self.outcome)
             self._cursor += max(1, stack)
             return batch
         if stack < 1:
             return make_host_batch(self.dataset, rng, self._local_batch,
-                                   self.scheme, self.augment, self.wire)
+                                   self.scheme, self.augment, self.wire,
+                                   self.outcome)
         return make_host_superbatch(self.dataset, rng, self._local_batch,
                                     stack, self.scheme, self.augment,
-                                    self.wire)
+                                    self.wire, self.outcome)
 
     def _worker(self, rng: np.random.Generator) -> None:
         try:

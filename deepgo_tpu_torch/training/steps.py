@@ -30,10 +30,20 @@ runs. The parts sit inside one ``train.step`` range (``obs.hot_range``,
 opened only while a capture runs), which marks each step's bounds in a
 capture.
 
+AlphaGo Zero's dual-head network (``models/resnet.ResNetConfig``) trains
+on the paper's joint loss, chosen when the step is made: mean (z - v)^2,
+plus the mean NLL, plus ``resnet.L2_WEIGHT`` times the squared norm of
+every convolution and dense weight (``_dual_step``, under the same labels,
+the model in train mode so that BN uses and updates batch statistics; the
+L2 term's gradient is added to the backward's by ``add_l2``); its batches
+carry the outcome ``z`` (``AsyncLoader(outcome=True)``).
+
 Batches are dicts of tensors on the model's device:
   packed  (B, 9, 19, 19) uint8, or (B, 1625) uint8 under wire="nibble"
   player  (B,) int32      rank (B,) int32      target (B,) int32
   sym     (B,) int32 with augment=True         mask (B,) float32 (eval only)
+  z       (B,) float32 for a ``ResNetConfig``: +1 the side to move won,
+          -1 lost, 0 undecided
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..models import policy_cnn
+from ..models import policy_cnn, resnet
 from ..obs.spans import hot_range
 from ..ops import expand_planes
 from ..ops.augment import augment_batch
@@ -146,6 +156,74 @@ def _one_step(model, opt_state, batch, cfg, optimizer, augment, anchor,
         return opt_state, loss
 
 
+def joint_loss(logits: torch.Tensor, value: torch.Tensor,
+               targets: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The data terms of AlphaGo Zero's loss, in float32: mean (z - v)^2
+    + mean NLL."""
+    return F.mse_loss(value, z) + nll_from_logits(logits, targets)
+
+
+@torch.no_grad()
+def add_l2(grads: list, params: list, weights: list, loss: torch.Tensor
+           ) -> torch.Tensor:
+    """The loss's L2 term, ``resnet.L2_WEIGHT`` * sum of ||w||^2 over
+    ``weights``: its gradient 2 c w added in place to those weights' entries
+    of ``grads`` (in ``params`` order) in one multi-tensor pass, and its
+    value to ``loss``, which is returned. Autograd would take some 500
+    launches a step of a 40-block network for the same sums."""
+    at = {id(p): i for i, p in enumerate(params)}
+    torch._foreach_add_([grads[at[id(w)]] for w in weights], weights,
+                        alpha=2.0 * resnet.L2_WEIGHT)
+    norms = torch.stack(torch._foreach_norm(weights))
+    return loss + resnet.L2_WEIGHT * norms.square().sum()
+
+
+def _dual_step(model, opt_state, batch, cfg, optimizer, augment, anchor,
+               wire, group):
+    """``_one_step`` for a ``DualResNet``: the joint loss on (logits,
+    value) with the L2 term (``add_l2``), the model in train mode
+    (``anchor`` is always None)."""
+    with hot_range("train.step"):
+        with record_function("train.unwire"):
+            packed = _unwire(batch["packed"], wire)
+        target = batch["target"]
+        if augment:
+            with record_function("train.augment"):
+                packed, target = augment_batch(packed, target, batch["sym"])
+        with record_function("train.expand"):
+            planes = _planes(batch, packed, cfg)
+        if not model.training:
+            model.train()
+        params = list(model.parameters())
+        with torch.enable_grad():
+            with record_function("train.forward"):
+                logits, value = model(planes)
+            with record_function("train.loss"):
+                loss = joint_loss(logits, value, target, batch["z"])
+            with record_function("train.backward"):
+                grads = list(torch.autograd.grad(loss, params))
+        loss = loss.detach()
+        if group is not None:
+            with record_function("train.allreduce"):
+                grads, loss = average_gradients(grads, loss, group)
+        with record_function("train.loss"):
+            loss = add_l2(grads, params, model.l2_weights(), loss)
+        with record_function("train.optimizer"):
+            opt_state = optimizer.update(model, grads, opt_state)
+        return opt_state, loss
+
+
+def _step_for(cfg, anchor):
+    """The one-step function of a config, chosen once: ``_dual_step`` for
+    a ``ResNetConfig`` (which takes no anchor), else ``_one_step``."""
+    if not isinstance(cfg, resnet.ResNetConfig):
+        return _one_step
+    if anchor is not None:
+        raise ValueError("the KL anchor is a policy network's fine-tune; "
+                         f"{type(cfg).__name__} takes none")
+    return _dual_step
+
+
 def _check_cfg(model, cfg) -> None:
     if model.cfg != cfg:
         raise ValueError(f"model config {model.cfg} != step config {cfg}")
@@ -162,7 +240,8 @@ def _anchor(anchor):
     return a_model, float(weight)
 
 
-def make_train_step(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
+def make_train_step(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
+                    optimizer: Optimizer,
                     expand_backend: str = "xla", augment: bool = False,
                     anchor=None, wire: str = "packed",
                     collective_site: str | None = None, mesh=None):
@@ -181,21 +260,24 @@ def make_train_step(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
     over "data" (the returned loss is the global batch's). ``expand_backend``
     is accepted so configs carry over: the tensors' device picks the
     expansion (the CUDA kernel on the card, the plain version on the
-    CPU)."""
+    CPU). A ``ResNetConfig`` steps on the joint loss (module docstring)
+    and raises for an ``anchor``."""
     del expand_backend
+    one_step = _step_for(cfg, anchor)
     anchor = _anchor(anchor)
     group = _data_group(mesh)
 
     def step(model, opt_state, batch):
         _check_cfg(model, cfg)
-        opt_state, loss = _one_step(model, opt_state, batch, cfg, optimizer,
-                                    augment, anchor, wire, group)
+        opt_state, loss = one_step(model, opt_state, batch, cfg, optimizer,
+                                   augment, anchor, wire, group)
         return model, opt_state, loss
 
     return _with_collective_site(step, collective_site)
 
 
-def make_train_step_many(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
+def make_train_step_many(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
+                         optimizer: Optimizer,
                          expand_backend: str = "xla", augment: bool = False,
                          anchor=None, wire: str = "packed",
                          collective_site: str | None = None, mesh=None):
@@ -208,6 +290,7 @@ def make_train_step_many(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
     losses as one (K,) float32 tensor on the device; no value goes back to
     the host between the steps. ``mesh`` as for ``make_train_step``."""
     del expand_backend
+    one_step = _step_for(cfg, anchor)
     anchor = _anchor(anchor)
     group = _data_group(mesh)
 
@@ -216,7 +299,7 @@ def make_train_step_many(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
         k = batches["target"].shape[0]
         losses = []
         for i in range(k):
-            opt_state, loss = _one_step(
+            opt_state, loss = one_step(
                 model, opt_state, {n: v[i] for n, v in batches.items()},
                 cfg, optimizer, augment, anchor, wire, group)
             losses.append(loss)
@@ -225,12 +308,32 @@ def make_train_step_many(cfg: policy_cnn.ModelConfig, optimizer: Optimizer,
     return _with_collective_site(step, collective_site)
 
 
-def make_eval_step(cfg: policy_cnn.ModelConfig, expand_backend: str = "xla",
-                   wire: str = "packed"):
+def _eval_logits(cfg):
+    """model, planes -> policy logits: a ``DualResNet`` in eval mode (BN
+    on its running statistics), its mode restored after."""
+    if not isinstance(cfg, resnet.ResNetConfig):
+        return lambda model, planes: model(planes)
+
+    def logits(model, planes):
+        was = model.training
+        model.eval()
+        try:
+            return model(planes)[0]
+        finally:
+            model.train(was)
+
+    return logits
+
+
+def make_eval_step(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
+                   expand_backend: str = "xla", wire: str = "packed"):
     """Returns eval(model, batch) -> (sum_nll, num_correct) over the batch,
     0-d float32 tensors on the device. An optional float "mask" entry
-    (1 = real example) lets partial batches be padded to a fixed shape."""
+    (1 = real example) lets partial batches be padded to a fixed shape.
+    A ``ResNetConfig``'s network is judged on its policy logits in eval
+    mode."""
     del expand_backend
+    forward = _eval_logits(cfg)
 
     @torch.no_grad()
     def step(model, batch):
@@ -240,7 +343,7 @@ def make_eval_step(cfg: policy_cnn.ModelConfig, expand_backend: str = "xla",
         if mask is None:
             mask = torch.ones(target.shape, dtype=torch.float32,
                               device=target.device)
-        logits = model(planes)
+        logits = forward(model, planes)
         logp = F.log_softmax(logits.float(), dim=-1)
         picked = logp.gather(1, target[:, None])[:, 0]
         correct = ((logits.argmax(dim=-1) == target) * mask).sum()
