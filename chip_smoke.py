@@ -31,7 +31,17 @@ then, each phase failing the run on the first disagreement:
    the plain version's time (the PyTorch ops the network ran before,
    also printed as ``library_ms``); and the launch counts of a ``large``
    train step (13 forwards, 13 backwards) and of a ``full`` serving
-   forward (12 forwards, no backward).
+   forward (12 forwards, no backward). Then the residual network's BN
+   epilogue (``ops.bn_relu``: batch normalisation in train mode, the skip
+   added where there is one, ReLU; three kernels each way) at ``agz40``'s
+   B = 512, C = 256, bf16, without the skip and with it: the output within
+   one bf16 spacing of the plain version at BN's value, dX within one
+   spacing, BN's scale and shift gradients and the running statistics
+   within 1e-5, the ReLU masks apart at a millionth of the points at most,
+   the backward bitwise the same on a second run; each way timed beside
+   its bytes bound (the least: read x and the skip, write y; read dY, x
+   and y, write dX and the skip's gradient) and the plain version's time;
+   and the launch counts of an ``agz40`` train step (81 each way).
 4. f32 path: ``policy_engine`` over the ``full`` config (12 layers x 128
    channels, bf16, random weights from a seed) answers bursts of concurrent
    single-board requests from 8 threads that land on every ladder rung.
@@ -355,13 +365,15 @@ from deepgo_tpu_torch.loop import (ContinuousLearner, ExpertIterationLoop,
                                    LoopConfig, ReplayBuffer, read_windows,
                                    replay_window)
 from deepgo_tpu_torch.loop import gatekeeper as loop_gatekeeper
-from deepgo_tpu_torch.models import convert, policy_cnn, quant, value_cnn
+from deepgo_tpu_torch.models import (convert, policy_cnn, quant, resnet,
+                                     value_cnn)
 from deepgo_tpu_torch.models.serving import (conv_rows, load_policy,
                                              load_value, make_log_prob_fn,
                                              make_value_fn)
 from deepgo_tpu_torch.obs import configure_flight
-from deepgo_tpu_torch.ops import (_build, cuda_epilogue, cuda_expand,
-                                  expand_planes)
+from deepgo_tpu_torch.ops import (_build, cuda_bn_epilogue, cuda_epilogue,
+                                  cuda_expand, expand_planes)
+from deepgo_tpu_torch.ops import bn_epilogue as plain_bn_epilogue
 from deepgo_tpu_torch.ops import epilogue as plain_epilogue
 from deepgo_tpu_torch.ops import expand as plain_expand
 from deepgo_tpu_torch.parallel import distributed, reshard
@@ -398,6 +410,9 @@ TRAIN_BATCHES = (256, 1024)  # the expansion kernel at the train steps' B
 # the full bulk-inference cell and a 64-row serving forward
 EPILOGUE_SHAPES = (("large", 1024, 256), ("full", 8192, 128),
                    ("full", 64, 128))
+# (config, B, C) of the residual trunk's BN epilogue: the agz40 train cell
+BN_EPILOGUE_SHAPE = ("agz40", 512, 256)
+BN_LAUNCH_ROWS = 8  # the agz40 train step whose BN epilogues are counted
 SLICED = 512        # boards of packed[1:] of SLICED + 1: an odd address
 BACK_TO_BACK = 20   # launches between one pair of events, for per-launch ms
 # Burst sizes of the engine paths: each lands on one rung of the default
@@ -873,6 +888,170 @@ def phase_epilogue() -> dict:
             3 * act + 2 * slabs * 361 * c * 4, shape) | {"slabs": slabs})
         del x, bias, dy, y, dx, db, db_again, xg, bg, want, dx_want, db_want
     return {"forward": fwd, "backward": bwd, "launches": epilogue_launches()}
+
+
+def bn_epilogue_inputs(gen: torch.Generator, b: int, c: int):
+    """bf16 x (channels with means and scales of their own, exact zeros
+    and negative zeros), a skip and a gradient dy, channels-last (b, c, 19,
+    19); a train-mode BatchNorm with its state drawn away from 1, 0, 0, 1."""
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x = draw(b, 19, 19, c) * (0.5 + draw(c).abs()) + draw(c)
+    x.view(-1)[::7] = 0.0
+    x.view(-1)[3::11] = -0.0
+    bn = resnet.BatchNorm(c, 1e-5, 0.1).cuda()
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.1 * draw(c))
+        bn.bias.copy_(0.1 * draw(c))
+        bn.running_mean.copy_(0.1 * draw(c))
+        bn.running_var.copy_(1.0 + 0.1 * draw(c).abs())
+    return (*(t.bfloat16().permute(0, 3, 1, 2)
+              for t in (x, draw(b, 19, 19, c), draw(b, 19, 19, c))), bn)
+
+
+def bf16_spacing(v: torch.Tensor) -> torch.Tensor:
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v.abs())[1] - 8)
+
+
+def bf16_close(got: torch.Tensor, want: torch.Tensor,
+               pre: torch.Tensor | None = None,
+               scale: torch.Tensor | None = None) -> bool:
+    """Within one bf16 spacing at the larger of |got|, |want| and 1e-5 of
+    the largest |want|; for BN's output, plus one at BN's value ``pre`` and
+    2^-19 of its terms' size ``scale`` (tests/test_torch_bn_epilogue.py's
+    _y_tolerance)."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                        1e-5 * want.abs().max())
+    tol = bf16_spacing(big)
+    if pre is not None:
+        tol = tol + bf16_spacing(pre.float()) + scale * 2.0 ** -19
+    return bool(((got - want).abs() <= tol).all())
+
+
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def bn_epilogue_launches() -> dict:
+    """The BN epilogue's calls in one ``agz40`` train step at
+    BN_LAUNCH_ROWS rows: 2 * blocks + 1 each way."""
+    gen = np.random.default_rng(SEED + 3)
+    cfg = resnet.CONFIGS["agz40"]
+    model = resnet.init(torch.Generator().manual_seed(SEED), cfg)
+    optimizer = sgd(0.01, momentum=0.9)
+    step = make_train_step(cfg, optimizer)
+    b = BN_LAUNCH_ROWS
+    packed, player, rank = random_records(gen, b)
+    batch = {"packed": packed, "player": player, "rank": rank,
+             "target": gen.integers(0, 361, b).astype(np.int32),
+             "z": gen.choice([-1.0, 1.0], b).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    state = optimizer.init(model)
+    step(model, state, batch)
+    torch.cuda.synchronize()
+    cuda_bn_epilogue.reset_launches()
+    step(model, state, batch)
+    torch.cuda.synchronize()
+    train = [cuda_bn_epilogue.launches, cuda_bn_epilogue.bwd_launches]
+    want = 2 * cfg.blocks + 1
+    check(train == [want, want], f"agz40 train step: {want} + {want} BN "
+          f"epilogue launches, got {train}")
+    out = {"train_agz40_step": {"forward": train[0], "backward": train[1]}}
+    print("BN epilogue launches: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_bn_epilogue() -> dict:
+    """The BN epilogue kernels against the plain version at
+    BN_EPILOGUE_SHAPE, without the skip and with it, timed each way beside
+    their bytes bound and the plain version's time, and their launches on
+    the agz40 train path."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    name, b, c = BN_EPILOGUE_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    act = b * 361 * c * 2
+    fwd, bwd = [], []
+    for with_skip in (False, True):
+        x, skip, dy, bn = bn_epilogue_inputs(gen, b, c)
+        skip = skip if with_skip else None
+        shape = (f"{name} B={b} C={c} bfloat16 "
+                 f"{'with' if with_skip else 'without'} skip")
+        bn_plain = copy.deepcopy(bn)
+        y, saved = cuda_bn_epilogue.bn_relu_cuda(x, bn, skip)
+        kept = None if skip is None else y
+        got = cuda_bn_epilogue.bn_relu_backward_cuda(dy, x, saved, bn.weight,
+                                                     bn.bias, kept)
+        again = cuda_bn_epilogue.bn_relu_backward_cuda(
+            dy, x, saved, bn.weight, bn.bias, kept)
+        xg = x.detach().requires_grad_()
+        sg = None if skip is None else skip.detach().requires_grad_()
+        pre, mean, invstd = (t.detach() for t in
+                             torch.ops.aten.native_batch_norm(
+                                 x, bn.weight, bn.bias,
+                                 bn_plain.running_mean.clone(),
+                                 bn_plain.running_var.clone(), True,
+                                 bn.momentum, bn.eps))
+        m = mean.view(1, -1, 1, 1)
+        scale = (((x.float() - m).abs() + m.abs())
+                 * (bn.weight * invstd).detach().abs().view(1, -1, 1, 1)
+                 + bn.bias.detach().abs().view(1, -1, 1, 1))
+        want = plain_bn_epilogue.bn_relu(xg, bn_plain, sg)
+        leaves = [xg, bn_plain.weight, bn_plain.bias]
+        leaves += [] if sg is None else [sg]
+        grads_want = torch.autograd.grad(want, leaves, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        flip = (y > 0) != (want > 0)
+        keep = ~flip.any(dim=(0, 2, 3))
+        check(int(flip.sum()) <= flip.numel() // 10**6 + 1,
+              f"BN epilogue ReLU masks differ at {int(flip.sum())} points "
+              f"at {shape}")
+        check(bf16_close(y, want.detach(), pre, scale), f"BN epilogue "
+              f"forward not within a bf16 spacing of plain at {shape}")
+        check(bf16_close(got[0][~flip], grads_want[0][~flip]),
+              f"BN epilogue dX not within a bf16 spacing of plain at {shape}")
+        for i, what in ((1, "scale"), (2, "shift")):
+            check(rel_gap(got[i][keep], grads_want[i][keep]) <= 1e-5,
+                  f"BN epilogue {what} gradient off plain at {shape}")
+        if skip is not None:
+            check(bool((got[3] == grads_want[3])[~flip].all()),
+                  f"BN epilogue skip gradient != plain at {shape}")
+        for a, w in ((bn.running_mean, bn_plain.running_mean),
+                     (bn.running_var, bn_plain.running_var)):
+            check(rel_gap(a, w) <= 1e-5, f"BN epilogue running statistics "
+                  f"off plain at {shape}")
+        check(all(torch.equal(a, a2) for a, a2 in zip(got[:3], again[:3])),
+              f"BN epilogue backward differs run to run at {shape}")
+        y_err = float((y.float() - want.float()).abs().max())
+        dx_err = float((got[0].float() - grads_want[0].float())[~flip]
+                       .abs().max())
+        points, slabs = cuda_bn_epilogue.plan(b, c, 2, sms)[1::2]
+        parts = math.ceil(361 / points) * slabs
+        reads = 1 if skip is None else 2
+        with torch.no_grad():
+            fwd.append(epilogue_row(
+                "BN epilogue forward",
+                lambda: cuda_bn_epilogue.bn_relu_cuda(x, bn, skip),
+                lambda: plain_bn_epilogue.bn_relu(x, bn_plain, skip),
+                (reads + 1) * act, shape) | {
+                    "exact": False, "max_abs_err": y_err,
+                    "passes": reads + 2, "least_passes": reads + 1,
+                    "partial_bytes": 2 * parts * c * 4})
+        bwd.append(epilogue_row(
+            "BN epilogue backward",
+            lambda: cuda_bn_epilogue.bn_relu_backward_cuda(
+                dy, x, saved, bn.weight, bn.bias, kept),
+            lambda: torch.autograd.grad(want, leaves, dy, retain_graph=True),
+            (3 if skip is None else 5) * act, shape) | {
+                "exact": False, "max_abs_err": dx_err,
+                "passes": 5 if skip is None else 7,
+                "least_passes": 3 if skip is None else 5,
+                "partial_bytes": 2 * parts * c * 4})
+        del x, skip, dy, bn, bn_plain, y, saved, got, again, xg, sg, want
+        del grads_want, pre, mean, invstd, m, scale, flip, keep
+    return {"forward": fwd, "backward": bwd,
+            "launches": bn_epilogue_launches()}
 
 
 def run_bursts(engine, packed, player, rank, tiers=None, on_submit=None):
@@ -5668,6 +5847,7 @@ def main() -> int:
     kernel_rows = phase_kernel(rng, extra)
     sym_rows = phase_sym_kernel(rng, extra)
     epilogue = phase_epilogue()
+    bn_epilogue = phase_bn_epilogue()
     expand_paths, sym_paths, summary = {}, {}, {}
     if 4 in phases:
         path = phase_main_path(rng)
@@ -5783,6 +5963,12 @@ def main() -> int:
                        {path: n[half] for path, n in
                         epilogue["launches"].items()},
                        epilogue[half], epilogue[half][0], "epilogue.cu")
+          for half in ("forward", "backward")),
+        *(kernel_entry(f"bn_relu_{half}", None,
+                       {path: n[half] for path, n in
+                        bn_epilogue["launches"].items()},
+                       bn_epilogue[half], bn_epilogue[half][0],
+                       "bn_epilogue.cu")
           for half in ("forward", "backward")),
     ]}
     summary["seconds"] = time.perf_counter() - t_start

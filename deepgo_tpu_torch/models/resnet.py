@@ -25,8 +25,10 @@ As ``PolicyCNN``: parameters are float32, the forward casts the planes and
 the weights to ``cfg.compute_dtype`` and runs channels-last; the outputs
 are float32. BN keeps float32 scale, shift and running statistics, uses
 the batch's statistics and updates the running ones in train mode, and
-the running ones in eval mode. Planes come in NHWC (B, 19, 19, 37); the
-logits' point ``19*x + y``.
+the running ones in eval mode. Every BN, with the skip add and the ReLU
+after it, is one ``ops.bn_relu``: on the card one hand-written kernel set
+each way. Planes come in NHWC (B, 19, 19, 37); the logits' point
+``19*x + y``.
 
 While a profiler capture runs, the trunk and each head open a range
 (``resnet.trunk``, ``resnet.policy_head``, ``resnet.value_head``), so a
@@ -42,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import NUM_POINTS, resolve_device
+from .. import NUM_POINTS, ops, resolve_device
 from ..analysis.cudacheck import place
 from ..features import NUM_PLANES
 from ..obs.spans import hot_range
@@ -91,8 +93,9 @@ class BatchNorm(nn.Module):
     """Batch normalisation over the channels of NCHW activations: scale
     ``weight`` and shift ``bias``, ``running_mean`` and ``running_var``
     (the unbiased variance) updated by ``momentum`` in train mode.
-    ``nn.BatchNorm2d``'s arithmetic without its step counter, which costs
-    a launch a layer a step and which nothing here reads."""
+    ``nn.BatchNorm2d``'s parameters and buffers without its step counter,
+    which costs a launch a layer a step and which nothing here reads; its
+    arithmetic is ``ops.bn_relu``'s, which takes the module whole."""
 
     def __init__(self, c: int, eps: float, momentum: float):
         super().__init__()
@@ -102,25 +105,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, self.training,
-                            self.momentum, self.eps)
-
 
 class ConvBN(nn.Module):
-    """A SAME-padded convolution without bias, then batch normalisation:
-    ``weight`` (c_out, c_in, k, k) and ``bn``."""
+    """A SAME-padded convolution without bias, then batch normalisation and
+    ReLU: ``weight`` (c_out, c_in, k, k) and ``bn``."""
 
     def __init__(self, k: int, c_in: int, c_out: int, cfg: ResNetConfig):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, k, k))
         self.bn = BatchNorm(c_out, cfg.bn_eps, cfg.bn_momentum)
 
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype),
+                        padding=self.weight.shape[-1] // 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.conv2d(x, self.weight.to(x.dtype),
-                     padding=self.weight.shape[-1] // 2)
-        return self.bn(x)
+        return ops.bn_relu(self._conv(x), self.bn)
+
+    def residual(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """The convolution and BN, ``skip`` added before the ReLU: a
+        residual block's second layer."""
+        return ops.bn_relu(self._conv(x), self.bn, skip)
 
 
 class ResidualBlock(nn.Module):
@@ -130,8 +135,7 @@ class ResidualBlock(nn.Module):
         self.conv2 = ConvBN(3, cfg.channels, cfg.channels, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.conv1(x))
-        return F.relu(self.conv2(y) + x)
+        return self.conv2.residual(self.conv1(x), x)
 
 
 class Dense(nn.Module):
@@ -172,14 +176,14 @@ class DualResNet(nn.Module):
         flattens in (channel, x, y) order."""
         x = planes.permute(0, 3, 1, 2).to(self.cfg.torch_dtype)
         with hot_range("resnet.trunk"):
-            x = F.relu(self.stem(x))
+            x = self.stem(x)
             for block in self.blocks:
                 x = block(x)
         with hot_range("resnet.policy_head"):
-            p = F.relu(self.policy_conv(x)).reshape(x.shape[0], -1)
+            p = self.policy_conv(x).reshape(x.shape[0], -1)
             logits = self.policy_fc(p).float()
         with hot_range("resnet.value_head"):
-            v = F.relu(self.value_conv(x)).reshape(x.shape[0], -1)
+            v = self.value_conv(x).reshape(x.shape[0], -1)
             v = F.relu(self.value_fc1(v))
             value = torch.tanh(self.value_fc2(v).float())[:, 0]
         return logits, value

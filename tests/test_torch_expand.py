@@ -161,7 +161,8 @@ def test_nvcc_command_targets_hopper():
                               _build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-O3" in cmd
-    assert [s.stem for s in _build.sources()] == ["epilogue", "expand"]
+    assert [s.stem for s in _build.sources()] == ["bn_epilogue", "epilogue",
+                                                 "expand"]
     # the library name follows the source's content
     assert _build.library_path(_build.CSRC / "expand.cu").suffix == ".so"
 
