@@ -74,6 +74,22 @@ def _rows(batch_size: int, shard: tuple[int, int] | None) -> slice:
     return slice(index * per, (index + 1) * per)
 
 
+def _columns(dataset: GoDataset, idx: np.ndarray, wire: str,
+             outcome: bool) -> dict:
+    """What a batch carries of the positions ``idx``, gathered in one pass:
+    ``packed`` (nibble-packed on that wire), ``player``, ``rank``,
+    ``target``, and with ``outcome=True`` each row's ``z``
+    (``GoDataset.outcome_at``)."""
+    packed, player, rank, target = dataset.batch_at(idx)
+    if wire == "nibble":
+        packed = nibble_pack_np(packed)
+    columns = {"packed": packed, "player": player, "rank": rank,
+               "target": target}
+    if outcome:
+        columns["z"] = dataset.outcome_at(idx, player)
+    return columns
+
+
 def make_step_batch(dataset: GoDataset, seed: int, step: int, batch_size: int,
                     scheme: str = "game", augment: bool = False,
                     wire: str = "packed", stack: int = 0,
@@ -96,24 +112,13 @@ def make_step_batch(dataset: GoDataset, seed: int, step: int, batch_size: int,
         if augment:
             sym_parts.append(rng.integers(0, 8, size=batch_size)
                              .astype(np.int32)[rows])
-    batch_size = rows.stop - rows.start
-    idx = np.concatenate(idx_parts)
-    packed, player, rank, target = dataset.batch_at(idx)
-    if wire == "nibble":
-        packed = nibble_pack_np(packed)
-
-    def fold(a: np.ndarray) -> np.ndarray:
-        if stack < 1:
-            return a
-        return a.reshape(k, batch_size, *a.shape[1:])
-
-    batch = {"packed": fold(packed), "player": fold(player),
-             "rank": fold(rank), "target": fold(target)}
+    batch = _columns(dataset, np.concatenate(idx_parts), wire, outcome)
     if augment:
-        batch["sym"] = fold(np.concatenate(sym_parts))
-    if outcome:
-        batch["z"] = fold(dataset.outcome_at(idx, player))
-    return batch
+        batch["sym"] = np.concatenate(sym_parts)
+    if stack < 1:
+        return batch
+    return {n: a.reshape(k, rows.stop - rows.start, *a.shape[1:])
+            for n, a in batch.items()}
 
 
 def make_host_batch(dataset: GoDataset, rng: np.random.Generator,
@@ -122,17 +127,11 @@ def make_host_batch(dataset: GoDataset, rng: np.random.Generator,
                     outcome: bool = False) -> dict:
     """One batch of ``batch_size`` sampled positions; ``outcome=True``
     adds each row's ``z`` (``GoDataset.outcome_at``)."""
-    idx = dataset.sample_indices(rng, batch_size, scheme)
-    packed, player, rank, target = dataset.batch_at(idx)
-    if wire == "nibble":
-        packed = nibble_pack_np(packed)
-    batch = {"packed": packed, "player": player, "rank": rank,
-             "target": target}
+    batch = _columns(dataset, dataset.sample_indices(rng, batch_size, scheme),
+                     wire, outcome)
     if augment:
         # per-sample dihedral symmetry index, applied on the device
         batch["sym"] = rng.integers(0, 8, size=batch_size).astype(np.int32)
-    if outcome:
-        batch["z"] = dataset.outcome_at(idx, player)
     return batch
 
 
@@ -143,22 +142,12 @@ def make_host_superbatch(dataset: GoDataset, rng: np.random.Generator,
     """One (K, B, ...) superbatch from a single K*B-position gather:
     distributed as K stacked ``make_host_batch`` results, with one memmap
     gather and one nibble pass."""
-    n = batch_size * stack
-    idx = dataset.sample_indices(rng, n, scheme)
-    packed, player, rank, target = dataset.batch_at(idx)
-    if wire == "nibble":
-        packed = nibble_pack_np(packed)
-
-    def fold(a: np.ndarray) -> np.ndarray:
-        return a.reshape(stack, batch_size, *a.shape[1:])
-
-    batch = {"packed": fold(packed), "player": fold(player),
-             "rank": fold(rank), "target": fold(target)}
+    idx = dataset.sample_indices(rng, batch_size * stack, scheme)
+    batch = {n: a.reshape(stack, batch_size, *a.shape[1:])
+             for n, a in _columns(dataset, idx, wire, outcome).items()}
     if augment:
         batch["sym"] = rng.integers(
             0, 8, size=(stack, batch_size)).astype(np.int32)
-    if outcome:
-        batch["z"] = fold(dataset.outcome_at(idx, player))
     return batch
 
 

@@ -109,7 +109,9 @@ class ExperimentConfig:
     data_parallel: int = 0  # 0 = the group's ranks / tensor_parallel
     tensor_parallel: int = 1
     zero_opt: bool = True
-    expand_backend: str = "xla"  # accepted; the device picks the expansion
+    # kept so that configs carry over from the JAX package; nothing reads
+    # it: the tensors' device picks the expansion
+    expand_backend: str = "xla"
     seed: int = 0
     run_dir: str = "runs"
     profile: bool = False
@@ -213,16 +215,13 @@ class Experiment:
                                             device=self.device)
             anchor = (a_model, a_cfg, cfg.anchor_weight)
         collective_site = "dist_collective" if cfg.elastic else None
-        kw = dict(expand_backend=cfg.expand_backend, augment=cfg.augment,
-                  anchor=anchor, wire=self.wire,
+        kw = dict(augment=cfg.augment, anchor=anchor, wire=self.wire,
                   collective_site=collective_site, mesh=self.mesh)
         self.train_step = make_train_step(self.model_cfg, self.optimizer,
                                           **kw)
         self.train_step_many = make_train_step_many(self.model_cfg,
                                                     self.optimizer, **kw)
-        self.eval_step = make_eval_step(self.model_cfg,
-                                        expand_backend=cfg.expand_backend,
-                                        wire=self.wire)
+        self.eval_step = make_eval_step(self.model_cfg, wire=self.wire)
         self.run_path = os.path.join(cfg.run_dir, self.id)
         os.makedirs(self.run_path, exist_ok=True)
         self.initialized = True

@@ -8,6 +8,11 @@ flags, so an edited source never loads a stale library. A thread lock makes
 one build per process and a file lock one build across processes; the
 sources that need a build compile in parallel, one nvcc each.
 
+Beside ``launch`` sit the checks and partition pieces every wrapper
+(``cuda_*.py``) shares: the element sizes, the one-CUDA-device and 16-byte
+alignment tests, the vector width, the per-device SM count and the check of
+a (B, C, 19, 19) channels-last activation.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine need not have nvcc.
 """
@@ -25,12 +30,19 @@ from pathlib import Path
 
 import torch
 
+from .. import BOARD_SIZE
+
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# bytes a value of each dtype the kernels take
+ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
+VECTOR_BYTES = 16  # the widest access of one thread
+
 _lock = threading.Lock()
+_sm_counts: dict[int, int] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], object] = {}
 # name -> nvcc's output (ptxas register / shared-memory report) of the
@@ -137,3 +149,47 @@ def launch(fn, device, args: list, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed with cudaError "
                            f"{err} ({what})")
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of CUDA ``device``, read once a device."""
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device.index] = n
+    return n
+
+
+def check_device(device: torch.device, *others: torch.Tensor) -> None:
+    if device.type != "cuda" or any(t.device != device for t in others):
+        raise ValueError(f"the tensors must lie on one CUDA device, got "
+                         f"{[device, *(t.device for t in others)]}")
+
+
+def is_aligned(*tensors) -> bool:
+    return all(t.data_ptr() % VECTOR_BYTES == 0 for t in tensors)
+
+
+def vector_width(channels: int, elem_bytes: int, aligned: bool) -> int:
+    """Values a thread accesses: 16 bytes of neighbouring channels where C
+    allows it and the tensors are 16-byte aligned, else 1."""
+    vector = VECTOR_BYTES // elem_bytes
+    return 1 if channels % vector or not aligned else vector
+
+
+def check_activation(name: str, t: torch.Tensor, kernels: str,
+                     max_batch: int | None = None) -> None:
+    """Raise unless ``t`` is a (B, C, 19, 19) channels-last activation in a
+    dtype of ``ELEM_BYTES`` with 1 <= B (<= ``max_batch`` where given);
+    ``kernels`` names the kernels in the message."""
+    if t.dtype not in ELEM_BYTES:
+        raise ValueError(f"the {kernels} kernels take bfloat16 or float32, "
+                         f"not {t.dtype} ({name})")
+    if (t.dim() != 4 or tuple(t.shape[2:]) != (BOARD_SIZE, BOARD_SIZE)
+            or t.shape[0] < 1
+            or max_batch is not None and t.shape[0] > max_batch):
+        batch = "B >= 1" if max_batch is None else f"1 <= B <= {max_batch}"
+        raise ValueError(f"{name} must be ({batch}, C, {BOARD_SIZE}, "
+                         f"{BOARD_SIZE}), got {tuple(t.shape)}")
+    if not t.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name} must be channels-last contiguous")

@@ -27,23 +27,22 @@ import threading
 
 import torch
 
-from .. import BOARD_SIZE, NUM_POINTS
+from .. import NUM_POINTS
 from . import _build
+from ._build import (ELEM_BYTES, check_activation, check_device,
+                     is_aligned, sm_count, vector_width)
 
 THREADS = 256       # threads a block (csrc/bn_epilogue.cu kThreads)
 # rows a block of an elementwise pass walks: many short blocks, so the last
 # wave is small whatever the kernel's registers allow a SM
 APPLY_ROWS = 16
-VECTOR_BYTES = 16
 # a channel's count of values, B * 361, is kept in float32: exact below 2^24
 MAX_BATCH = ((1 << 24) - 1) // NUM_POINTS
 
 launches = 0      # forward calls since import or the last reset
 bwd_launches = 0  # backward calls
 _count_lock = threading.Lock()
-_sm_counts: dict[int, int] = {}
 _resident: dict[tuple, tuple[int, int, int]] = {}
-_ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 _ARGTYPES = {
     # x, skip, y, weight, bias, running_mean, running_var, saved, partial;
     # batch, channels, elem_bytes, vector, reduce_rows, reduce_slabs, rows,
@@ -84,9 +83,7 @@ def plan(batch: int, channels: int, elem_bytes: int, sms: int,
     wave, and its kernels interleave the slabs' rows (slab s holds rows s,
     s + slabs, ...). Fixed by the shapes and the card, so the order of
     every sum is too."""
-    vector = VECTOR_BYTES // elem_bytes
-    if channels % vector or not aligned:
-        vector = 1
+    vector = vector_width(channels, elem_bytes, aligned)
     if channels // vector > THREADS:
         raise ValueError(f"the BN epilogue kernels take at most "
                          f"{THREADS * vector} channels here, got {channels}")
@@ -102,14 +99,6 @@ def plan(batch: int, channels: int, elem_bytes: int, sms: int,
 
 def _kernel(name: str):
     return _build.function("bn_epilogue", name, _ARGTYPES[name])
-
-
-def _sms(device: torch.device) -> int:
-    n = _sm_counts.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_counts[device.index] = n
-    return n
 
 
 def _resident_blocks(device: torch.device, elem_bytes: int, vector: int
@@ -136,7 +125,7 @@ def _passes(b: int, c: int, elem: int, device: torch.device, aligned: bool,
     partitions of reducing pass ``reducing`` (an index of
     ``_resident_blocks``) and of the elementwise pass after it, and the
     reducing pass's count of partials."""
-    sms = _sms(device)
+    sms = sm_count(device)
     vector, points, rows, slabs = plan(b, c, elem, sms, aligned)
     resident = _resident_blocks(device, elem, vector)[reducing]
     _, _, r_rows, r_slabs = plan(b, c, elem, sms, aligned, resident)
@@ -144,20 +133,8 @@ def _passes(b: int, c: int, elem: int, device: torch.device, aligned: bool,
     return vector, parts, [r_rows, r_slabs, rows, slabs]
 
 
-def _check_activation(name: str, t: torch.Tensor) -> None:
-    if t.dtype not in _ELEM_BYTES:
-        raise ValueError(f"the BN epilogue kernels take bfloat16 or float32, "
-                         f"not {t.dtype} ({name})")
-    if (t.dim() != 4 or tuple(t.shape[2:]) != (BOARD_SIZE, BOARD_SIZE)
-            or not 1 <= t.shape[0] <= MAX_BATCH):
-        raise ValueError(f"{name} must be (1 <= B <= {MAX_BATCH}, C, "
-                         f"{BOARD_SIZE}, {BOARD_SIZE}), got {tuple(t.shape)}")
-    if not t.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(f"{name} must be channels-last contiguous")
-
-
 def _check_like(name: str, t: torch.Tensor, x: torch.Tensor) -> None:
-    _check_activation(name, t)
+    check_activation(name, t, "BN epilogue", MAX_BATCH)
     if t.shape != x.shape or t.dtype != x.dtype:
         raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} does not match "
                          f"x {x.dtype} {tuple(x.shape)}")
@@ -168,16 +145,6 @@ def _check_channels(name: str, t: torch.Tensor, shape: tuple) -> None:
             or not t.is_contiguous()):
         raise ValueError(f"{name} must be float32 {shape} contiguous, got "
                          f"{t.dtype} {tuple(t.shape)}")
-
-
-def _check_device(device: torch.device, *others: torch.Tensor) -> None:
-    if device.type != "cuda" or any(t.device != device for t in others):
-        raise ValueError(f"the tensors must lie on one CUDA device, got "
-                         f"{[device, *(t.device for t in others)]}")
-
-
-def _aligned(*tensors) -> bool:
-    return all(t.data_ptr() % VECTOR_BYTES == 0 for t in tensors)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -193,7 +160,7 @@ def bn_relu_cuda(x: torch.Tensor, bn, skip: torch.Tensor | None = None
     dtype. In train mode the batch's statistics: saved = (mean, invstd)
     (2, C) float32, and the running statistics moved in place; in eval mode
     the running statistics, saved None."""
-    _check_activation("x", x)
+    check_activation("x", x, "BN epilogue", MAX_BATCH)
     b, c = x.shape[:2]
     params = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
     for name, t in zip(("weight", "bias", "running_mean", "running_var"),
@@ -203,12 +170,12 @@ def bn_relu_cuda(x: torch.Tensor, bn, skip: torch.Tensor | None = None
     if skip is not None:
         _check_like("skip", skip, x)
         others = (*params, skip)
-    _check_device(x.device, *others)
+    check_device(x.device, *others)
     y = torch.empty_like(x)
-    elem = _ELEM_BYTES[x.dtype]
+    elem = ELEM_BYTES[x.dtype]
     vector, parts, partition = _passes(
         b, c, elem, x.device,
-        _aligned(x, y, *(() if skip is None else (skip,))), 0)
+        is_aligned(x, y, *(() if skip is None else (skip,))), 0)
     saved = partial = None
     if bn.training:
         saved = torch.empty((2, c), dtype=torch.float32, device=x.device)
@@ -238,7 +205,7 @@ def bn_relu_backward_cuda(dy: torch.Tensor, x: torch.Tensor,
     x). dy, x and y (B, C, 19, 19) channels-last, one dtype, on one CUDA
     device -> (dX, the scale's gradient, the shift's gradient (C,) float32,
     the skip's gradient: dY masked by ReLU, or None without a skip)."""
-    _check_activation("dy", dy)
+    check_activation("dy", dy, "BN epilogue", MAX_BATCH)
     _check_like("x", x, dy)
     b, c = dy.shape[:2]
     _check_channels("saved", saved, (2, c))
@@ -248,13 +215,13 @@ def bn_relu_backward_cuda(dy: torch.Tensor, x: torch.Tensor,
     if y is not None:
         _check_like("y", y, dy)
         others = (*others, y)
-    _check_device(dy.device, *others)
+    check_device(dy.device, *others)
     dx = torch.empty_like(dy)
     dy_eff = None if y is None else torch.empty_like(dy)
-    elem = _ELEM_BYTES[dy.dtype]
+    elem = ELEM_BYTES[dy.dtype]
     vector, parts, partition = _passes(
         b, c, elem, dy.device,
-        _aligned(dy, x, dx, *(() if y is None else (y, dy_eff))),
+        is_aligned(dy, x, dx, *(() if y is None else (y, dy_eff))),
         1 if y is None else 2)
     scratch = torch.empty((parts + 1) * 2 * c, dtype=torch.float32,
                           device=dy.device)

@@ -25,19 +25,18 @@ import torch
 
 from .. import BOARD_SIZE, NUM_POINTS
 from . import _build
+from ._build import (ELEM_BYTES, check_activation, check_device,
+                     is_aligned, sm_count, vector_width)
 
 THREADS = 256       # threads a block (csrc/epilogue.cu kThreads)
 # the grid the partition aims at, in blocks per SM: on an H100 one or two
 # left the large shapes at 48-80 % of the bytes bound, eight or sixteen
 # were no faster than four (81-86 %)
 BLOCKS_PER_SM = 4
-VECTOR_BYTES = 16
 
 launches = 0      # forward launches since import or the last reset
 bwd_launches = 0  # backward launches (kernel and finishing pass)
 _count_lock = threading.Lock()
-_sm_counts: dict[int, int] = {}
-_ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 _ARGTYPES = {
     # x, bias, y, batch, channels, elem_bytes, vector, rows, slabs, relu,
     # stream
@@ -69,9 +68,7 @@ def plan(batch: int, channels: int, elem_bytes: int, sms: int,
     (the last may be shorter), enough for about BLOCKS_PER_SM blocks on
     each of ``sms`` SMs where the batch has the rows. Fixed by the shapes
     and the card, so the bias gradient's order of summation is too."""
-    vector = VECTOR_BYTES // elem_bytes
-    if channels % vector or not aligned:
-        vector = 1
+    vector = vector_width(channels, elem_bytes, aligned)
     tiles = math.ceil(NUM_POINTS * channels / vector / THREADS)
     rows = math.ceil(batch / min(batch, math.ceil(BLOCKS_PER_SM * sms
                                                   / tiles)))
@@ -82,43 +79,13 @@ def _kernel(name: str):
     return _build.function("epilogue", name, _ARGTYPES[name])
 
 
-def _sms(device: torch.device) -> int:
-    n = _sm_counts.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_counts[device.index] = n
-    return n
-
-
-def _check_activation(name: str, t: torch.Tensor) -> None:
-    if t.dtype not in _ELEM_BYTES:
-        raise ValueError(f"the epilogue kernels take bfloat16 or float32, "
-                         f"not {t.dtype} ({name})")
-    if (t.dim() != 4 or tuple(t.shape[2:]) != (BOARD_SIZE, BOARD_SIZE)
-            or t.shape[0] < 1):
-        raise ValueError(f"{name} must be (B >= 1, C, {BOARD_SIZE}, "
-                         f"{BOARD_SIZE}), got {tuple(t.shape)}")
-    if not t.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(f"{name} must be channels-last contiguous")
-
-
-def _check_device(device: torch.device, *others: torch.Tensor) -> None:
-    if device.type != "cuda" or any(t.device != device for t in others):
-        raise ValueError(f"the tensors must lie on one CUDA device, got "
-                         f"{[device, *(t.device for t in others)]}")
-
-
-def _aligned(*tensors) -> bool:
-    return all(t.data_ptr() % VECTOR_BYTES == 0 for t in tensors)
-
-
 def bias_relu_cuda(x: torch.Tensor, bias: torch.Tensor, relu: bool = True
                    ) -> torch.Tensor:
     """x (B, C, 19, 19) bfloat16 or float32, channels-last on a CUDA device;
     bias (C, 19, 19) float32, contiguous on the same device -> ``relu(x +
     bias)`` (``relu=False``: ``x + bias``), channels-last in x's dtype,
     bitwise ``ops.epilogue.bias_relu``."""
-    _check_activation("x", x)
+    check_activation("x", x, "epilogue")
     b, c = x.shape[:2]
     if (bias.dtype != torch.float32
             or tuple(bias.shape) != (c, BOARD_SIZE, BOARD_SIZE)
@@ -126,10 +93,11 @@ def bias_relu_cuda(x: torch.Tensor, bias: torch.Tensor, relu: bool = True
         raise ValueError(f"bias must be float32 ({c}, {BOARD_SIZE}, "
                          f"{BOARD_SIZE}) contiguous, got {bias.dtype} "
                          f"{tuple(bias.shape)}")
-    _check_device(x.device, bias)
+    check_device(x.device, bias)
     y = torch.empty_like(x)
-    elem = _ELEM_BYTES[x.dtype]
-    vector, rows, slabs = plan(b, c, elem, _sms(x.device), _aligned(x, y))
+    elem = ELEM_BYTES[x.dtype]
+    vector, rows, slabs = plan(b, c, elem, sm_count(x.device),
+                               is_aligned(x, y))
     args = [x.data_ptr(), bias.data_ptr(), y.data_ptr(), b, c, elem, vector,
             rows, slabs, int(relu)]
     _build.launch(_kernel("deepgo_bias_relu_forward"), x.device, args,
@@ -149,19 +117,19 @@ def bias_relu_backward_cuda(dy: torch.Tensor, y: torch.Tensor | None
     is dX summed over the batch in float32, in a fixed order, rounded to the
     compute dtype and widened, as autograd of ``x + bias.to(x.dtype)[None]``
     gives it up to the order of the sum."""
-    _check_activation("dy", dy)
+    check_activation("dy", dy, "epilogue")
     if y is not None:
-        _check_activation("y", y)
+        check_activation("y", y, "epilogue")
         if y.shape != dy.shape or y.dtype != dy.dtype:
             raise ValueError(f"y {y.dtype} {tuple(y.shape)} does not match "
                              f"dy {dy.dtype} {tuple(dy.shape)}")
     others = () if y is None else (y,)
-    _check_device(dy.device, *others)
+    check_device(dy.device, *others)
     b, c = dy.shape[:2]
-    elem = _ELEM_BYTES[dy.dtype]
+    elem = ELEM_BYTES[dy.dtype]
     dx = dy if y is None else torch.empty_like(dy)
-    vector, rows, slabs = plan(b, c, elem, _sms(dy.device),
-                               _aligned(dy, dx, *others))
+    vector, rows, slabs = plan(b, c, elem, sm_count(dy.device),
+                               is_aligned(dy, dx, *others))
     partial = torch.empty((slabs, NUM_POINTS * c), dtype=torch.float32,
                           device=dy.device)
     grad = torch.empty((c, BOARD_SIZE, BOARD_SIZE), dtype=torch.float32,

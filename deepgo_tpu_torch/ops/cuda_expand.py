@@ -21,13 +21,13 @@ import torch
 from .. import BOARD_SIZE
 from ..features import NUM_PLANES, PACKED_CHANNELS
 from . import _build
+from ._build import ELEM_BYTES
 from .augment import _PERM_NP, NUM_SYMMETRIES, table
 
 launches = 0      # expand kernel launches since import or the last reset
 sym_launches = 0  # sym kernel launches since import or the last reset
 _count_lock = threading.Lock()
 _perm_tables: dict[torch.device, torch.Tensor] = {}
-_OUT_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 _ARGTYPES = {
     # packed, player, rank, out, batch, out_bytes, stream
     "deepgo_expand_planes": [ctypes.c_void_p] * 4
@@ -53,7 +53,7 @@ def _kernel(name: str = "deepgo_expand_planes"):
 def _check_inputs(packed: torch.Tensor, player: torch.Tensor,
                   rank: torch.Tensor, dtype) -> int:
     """Raise on what the kernels do not take; return the batch size."""
-    if dtype not in _OUT_BYTES:
+    if dtype not in ELEM_BYTES:
         raise ValueError(f"expand kernel writes bfloat16 or float32, "
                          f"not {dtype}")
     board = (PACKED_CHANNELS, BOARD_SIZE, BOARD_SIZE)
@@ -89,7 +89,7 @@ def expand_planes_cuda(packed: torch.Tensor, player: torch.Tensor,
     out = torch.empty((b, BOARD_SIZE, BOARD_SIZE, NUM_PLANES), dtype=dtype,
                       device=packed.device)
     args = [packed.data_ptr(), player.data_ptr(), rank.data_ptr(),
-            out.data_ptr(), b, _OUT_BYTES[dtype]]
+            out.data_ptr(), b, ELEM_BYTES[dtype]]
     _build.launch(_kernel("deepgo_expand_planes"), packed.device, args,
                   f"batch {b}, {dtype}")
     global launches
@@ -124,7 +124,7 @@ def expand_planes_sym_cuda(packed: torch.Tensor, player: torch.Tensor,
                       dtype=dtype, device=packed.device)
     perm = _perm_table(packed.device)
     args = [packed.data_ptr(), player.data_ptr(), rank.data_ptr(),
-            perm.data_ptr(), out.data_ptr(), b, symmetries, _OUT_BYTES[dtype]]
+            perm.data_ptr(), out.data_ptr(), b, symmetries, ELEM_BYTES[dtype]]
     _build.launch(_kernel("deepgo_expand_planes_sym"), packed.device, args,
                   f"batch {b}, {symmetries} views, {dtype}")
     global sym_launches

@@ -17,10 +17,8 @@ from .mesh import Mesh
 
 
 def make_shard_map_train_step(cfg: policy_cnn.ModelConfig,
-                              optimizer: Optimizer, mesh: Mesh,
-                              expand_backend: str = "xla"):
+                              optimizer: Optimizer, mesh: Mesh):
     """step(model, opt_state, batch) with a hand-written gradient mean:
     each data rank computes loss and gradients on its rows of the batch,
     then all-reduces both by mean over "data"."""
-    return make_train_step(cfg, optimizer, expand_backend=expand_backend,
-                           mesh=mesh)
+    return make_train_step(cfg, optimizer, mesh=mesh)

@@ -30,13 +30,14 @@ runs. The parts sit inside one ``train.step`` range (``obs.hot_range``,
 opened only while a capture runs), which marks each step's bounds in a
 capture.
 
-AlphaGo Zero's dual-head network (``models/resnet.ResNetConfig``) trains
-on the paper's joint loss, chosen when the step is made: mean (z - v)^2,
-plus the mean NLL, plus ``resnet.L2_WEIGHT`` times the squared norm of
-every convolution and dense weight (``_dual_step``, under the same labels,
+Both network families run one step body. What differs between them is
+chosen once, when the step is made (``_family``): AlphaGo Zero's dual-head
+network (``models/resnet.ResNetConfig``) trains on the paper's joint loss,
+mean (z - v)^2, plus the mean NLL, plus ``resnet.L2_WEIGHT`` times the
+squared norm of every convolution and dense weight, under the same labels,
 the model in train mode so that BN uses and updates batch statistics; the
-L2 term's gradient is added to the backward's by ``add_l2``); its batches
-carry the outcome ``z`` (``AsyncLoader(outcome=True)``).
+L2 term's gradient is added to the backward's by ``add_l2`` after the
+reduce. Its batches carry the outcome ``z`` (``AsyncLoader(outcome=True)``).
 
 Batches are dicts of tensors on the model's device:
   packed  (B, 9, 19, 19) uint8, or (B, 1625) uint8 under wire="nibble"
@@ -47,6 +48,8 @@ Batches are dicts of tensors on the model's device:
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -101,12 +104,6 @@ def _planes(batch: dict, packed: torch.Tensor, cfg) -> torch.Tensor:
                          batch["rank"].contiguous(), dtype=cfg.torch_dtype)
 
 
-def _data_group(mesh):
-    """The group a step averages its gradients over; None for no mesh or
-    a 1 x 1 mesh without a process group."""
-    return None if mesh is None else mesh.group("data")
-
-
 def average_gradients(grads, loss, group):
     """Every gradient and the loss averaged over ``group`` by one
     all-reduce of one flat float32 buffer; returns (grads, loss), the
@@ -116,44 +113,6 @@ def average_gradients(grads, loss, group):
     parts = flat.split([g.numel() for g in grads] + [1])
     return ([p.view(g.shape) for p, g in zip(parts, grads)],
             parts[-1].view(()))
-
-
-def _one_step(model, opt_state, batch, cfg, optimizer, augment, anchor,
-              wire, group):
-    with hot_range("train.step"):
-        with record_function("train.unwire"):
-            packed = _unwire(batch["packed"], wire)
-        target = batch["target"]
-        if augment:
-            with record_function("train.augment"):
-                packed, target = augment_batch(packed, target, batch["sym"])
-        with record_function("train.expand"):
-            planes = _planes(batch, packed, cfg)
-        params = list(model.parameters())
-        with torch.enable_grad():
-            with record_function("train.forward"):
-                logits = model(planes)
-            with record_function("train.loss"):
-                loss = nll_from_logits(logits, target)
-                if anchor is not None:
-                    # KL-anchored fine-tune: add weight * CE(anchor_probs,
-                    # model), whose gradients are KL(anchor || model)'s. The
-                    # reported loss includes the anchor term.
-                    a_model, weight = anchor
-                    with torch.no_grad():
-                        a_prob = F.softmax(a_model(planes).float(), dim=-1)
-                    logp = F.log_softmax(logits.float(), dim=-1)
-                    loss = loss + weight * (
-                        -(a_prob * logp).sum(dim=-1).mean())
-            with record_function("train.backward"):
-                grads = list(torch.autograd.grad(loss, params))
-        loss = loss.detach()
-        if group is not None:
-            with record_function("train.allreduce"):
-                grads, loss = average_gradients(grads, loss, group)
-        with record_function("train.optimizer"):
-            opt_state = optimizer.update(model, grads, opt_state)
-        return opt_state, loss
 
 
 def joint_loss(logits: torch.Tensor, value: torch.Tensor,
@@ -178,50 +137,6 @@ def add_l2(grads: list, params: list, weights: list, loss: torch.Tensor
     return loss + resnet.L2_WEIGHT * norms.square().sum()
 
 
-def _dual_step(model, opt_state, batch, cfg, optimizer, augment, anchor,
-               wire, group):
-    """``_one_step`` for a ``DualResNet``: the joint loss on (logits,
-    value) with the L2 term (``add_l2``), the model in train mode
-    (``anchor`` is always None)."""
-    with hot_range("train.step"):
-        with record_function("train.unwire"):
-            packed = _unwire(batch["packed"], wire)
-        target = batch["target"]
-        if augment:
-            with record_function("train.augment"):
-                packed, target = augment_batch(packed, target, batch["sym"])
-        with record_function("train.expand"):
-            planes = _planes(batch, packed, cfg)
-        if not model.training:
-            model.train()
-        params = list(model.parameters())
-        with torch.enable_grad():
-            with record_function("train.forward"):
-                logits, value = model(planes)
-            with record_function("train.loss"):
-                loss = joint_loss(logits, value, target, batch["z"])
-            with record_function("train.backward"):
-                grads = list(torch.autograd.grad(loss, params))
-        loss = loss.detach()
-        if group is not None:
-            with record_function("train.allreduce"):
-                grads, loss = average_gradients(grads, loss, group)
-        with record_function("train.loss"):
-            loss = add_l2(grads, params, model.l2_weights(), loss)
-        with record_function("train.optimizer"):
-            opt_state = optimizer.update(model, grads, opt_state)
-        return opt_state, loss
-
-
-def _step_for(cfg, anchor):
-    """The one-step function of a config, chosen once: ``_dual_step`` for
-    a ``ResNetConfig`` (which takes no anchor), else ``_one_step``."""
-    if not isinstance(cfg, resnet.ResNetConfig):
-        return _one_step
-    if anchor is not None:
-        raise ValueError("the KL anchor is a policy network's fine-tune; "
-                         f"{type(cfg).__name__} takes none")
-    return _dual_step
 
 
 def _check_cfg(model, cfg) -> None:
@@ -229,20 +144,110 @@ def _check_cfg(model, cfg) -> None:
         raise ValueError(f"model config {model.cfg} != step config {cfg}")
 
 
-def _anchor(anchor):
-    """``(anchor_model, anchor_cfg, weight)`` -> (model, weight); the
-    anchor model is frozen."""
-    if anchor is None:
-        return None
-    a_model, a_cfg, weight = anchor
-    _check_cfg(a_model, a_cfg)
-    a_model.requires_grad_(False)
-    return a_model, float(weight)
+class _Family(NamedTuple):
+    """The parts of a step that differ by network family (``_family``)."""
+
+    train_mode: bool  # put the model in train mode before the forward (BN)
+    loss: Callable  # (forward's outputs, target, batch, planes) -> loss
+    # (model, grads, params, loss) -> loss, after the reduce; or None
+    after_reduce: Callable | None
+    logits: Callable  # (model, planes) -> policy logits, for the eval step
+
+
+def _eval_mode_logits(model, planes):
+    was = model.training
+    model.eval()
+    try:
+        return model(planes)[0]
+    finally:
+        model.train(was)
+
+
+def _family(cfg, anchor) -> _Family:
+    """A config's family, chosen once when a step is made. A policy network
+    steps on ``nll_from_logits`` plus the optional KL-anchor term. A
+    ``ResNetConfig``'s ``DualResNet``, which takes no anchor, steps on
+    ``joint_loss`` in train mode, adds ``add_l2``'s term after the reduce,
+    and is judged on its policy logits in eval mode (BN on its running
+    statistics, its mode restored after). The parts look the public loss
+    functions up in this module when they run."""
+    if isinstance(cfg, resnet.ResNetConfig):
+        if anchor is not None:
+            raise ValueError("the KL anchor is a policy network's fine-tune; "
+                             f"{type(cfg).__name__} takes none")
+        return _Family(
+            True, lambda out, target, batch, planes: joint_loss(
+                *out, target, batch["z"]),
+            lambda model, grads, params, loss: add_l2(
+                grads, params, model.l2_weights(), loss),
+            _eval_mode_logits)
+    if anchor is not None:  # (anchor_model, anchor_cfg, weight), frozen
+        a_model, a_cfg, weight = anchor
+        _check_cfg(a_model, a_cfg)
+        a_model.requires_grad_(False)
+        anchor = a_model, float(weight)
+
+    def policy_loss(logits, target, batch, planes):
+        loss = nll_from_logits(logits, target)
+        if anchor is not None:
+            # KL-anchored fine-tune: add weight * CE(anchor_probs, model),
+            # whose gradients are KL(anchor || model)'s. The reported loss
+            # includes the anchor term.
+            a_model, weight = anchor
+            with torch.no_grad():
+                a_prob = F.softmax(a_model(planes).float(), dim=-1)
+            logp = F.log_softmax(logits.float(), dim=-1)
+            loss = loss + weight * (-(a_prob * logp).sum(dim=-1).mean())
+        return loss
+
+    return _Family(False, policy_loss, None,
+                   lambda model, planes: model(planes))
+
+
+def _one_step(cfg, optimizer, augment, anchor, wire, mesh):
+    """one_step(model, opt_state, batch) -> (opt_state, loss): the step
+    both factories run, its family's parts and data group chosen here."""
+    train_mode, family_loss, after_reduce, _ = _family(cfg, anchor)
+    # None for no mesh or a 1 x 1 mesh without a process group
+    group = None if mesh is None else mesh.group("data")
+
+    def one_step(model, opt_state, batch):
+        with hot_range("train.step"):
+            with record_function("train.unwire"):
+                packed = _unwire(batch["packed"], wire)
+            target = batch["target"]
+            if augment:
+                with record_function("train.augment"):
+                    packed, target = augment_batch(packed, target,
+                                                   batch["sym"])
+            with record_function("train.expand"):
+                planes = _planes(batch, packed, cfg)
+            if train_mode and not model.training:
+                model.train()
+            params = list(model.parameters())
+            with torch.enable_grad():
+                with record_function("train.forward"):
+                    outputs = model(planes)
+                with record_function("train.loss"):
+                    loss = family_loss(outputs, target, batch, planes)
+                with record_function("train.backward"):
+                    grads = list(torch.autograd.grad(loss, params))
+            loss = loss.detach()
+            if group is not None:
+                with record_function("train.allreduce"):
+                    grads, loss = average_gradients(grads, loss, group)
+            if after_reduce is not None:
+                with record_function("train.loss"):
+                    loss = after_reduce(model, grads, params, loss)
+            with record_function("train.optimizer"):
+                opt_state = optimizer.update(model, grads, opt_state)
+            return opt_state, loss
+
+    return one_step
 
 
 def make_train_step(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
-                    optimizer: Optimizer,
-                    expand_backend: str = "xla", augment: bool = False,
+                    optimizer: Optimizer, augment: bool = False,
                     anchor=None, wire: str = "packed",
                     collective_site: str | None = None, mesh=None):
     """Returns step(model, opt_state, batch) -> (model, opt_state, loss).
@@ -257,28 +262,22 @@ def make_train_step(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
     KL-to-anchor term (the anchor is frozen). ``collective_site`` names a
     fault point checked on the host before each call. With ``mesh`` the
     batch is this data rank's rows and the gradients and loss are averaged
-    over "data" (the returned loss is the global batch's). ``expand_backend``
-    is accepted so configs carry over: the tensors' device picks the
-    expansion (the CUDA kernel on the card, the plain version on the
-    CPU). A ``ResNetConfig`` steps on the joint loss (module docstring)
-    and raises for an ``anchor``."""
-    del expand_backend
-    one_step = _step_for(cfg, anchor)
-    anchor = _anchor(anchor)
-    group = _data_group(mesh)
+    over "data" (the returned loss is the global batch's). The tensors'
+    device picks the expansion (the CUDA kernel on the card, the plain
+    version on the CPU). A ``ResNetConfig`` steps on the joint loss
+    (module docstring) and raises for an ``anchor``."""
+    one_step = _one_step(cfg, optimizer, augment, anchor, wire, mesh)
 
     def step(model, opt_state, batch):
         _check_cfg(model, cfg)
-        opt_state, loss = one_step(model, opt_state, batch, cfg, optimizer,
-                                   augment, anchor, wire, group)
+        opt_state, loss = one_step(model, opt_state, batch)
         return model, opt_state, loss
 
     return _with_collective_site(step, collective_site)
 
 
 def make_train_step_many(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
-                         optimizer: Optimizer,
-                         expand_backend: str = "xla", augment: bool = False,
+                         optimizer: Optimizer, augment: bool = False,
                          anchor=None, wire: str = "packed",
                          collective_site: str | None = None, mesh=None):
     """Returns step(model, opt_state, batches) -> (model, opt_state,
@@ -288,52 +287,30 @@ def make_train_step_many(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
     with a leading steps dimension (K, B, ...) on every entry. One call
     runs K chained steps, equal to K single steps, and returns the K
     losses as one (K,) float32 tensor on the device; no value goes back to
-    the host between the steps. ``mesh`` as for ``make_train_step``."""
-    del expand_backend
-    one_step = _step_for(cfg, anchor)
-    anchor = _anchor(anchor)
-    group = _data_group(mesh)
+    the host between the steps. The other arguments are
+    ``make_train_step``'s."""
+    one_step = _one_step(cfg, optimizer, augment, anchor, wire, mesh)
 
     def step(model, opt_state, batches):
         _check_cfg(model, cfg)
-        k = batches["target"].shape[0]
         losses = []
-        for i in range(k):
-            opt_state, loss = one_step(
-                model, opt_state, {n: v[i] for n, v in batches.items()},
-                cfg, optimizer, augment, anchor, wire, group)
+        for i in range(batches["target"].shape[0]):
+            opt_state, loss = one_step(model, opt_state,
+                                       {n: v[i] for n, v in batches.items()})
             losses.append(loss)
         return model, opt_state, torch.stack(losses)
 
     return _with_collective_site(step, collective_site)
 
 
-def _eval_logits(cfg):
-    """model, planes -> policy logits: a ``DualResNet`` in eval mode (BN
-    on its running statistics), its mode restored after."""
-    if not isinstance(cfg, resnet.ResNetConfig):
-        return lambda model, planes: model(planes)
-
-    def logits(model, planes):
-        was = model.training
-        model.eval()
-        try:
-            return model(planes)[0]
-        finally:
-            model.train(was)
-
-    return logits
-
-
 def make_eval_step(cfg: policy_cnn.ModelConfig | resnet.ResNetConfig,
-                   expand_backend: str = "xla", wire: str = "packed"):
+                   wire: str = "packed"):
     """Returns eval(model, batch) -> (sum_nll, num_correct) over the batch,
     0-d float32 tensors on the device. An optional float "mask" entry
     (1 = real example) lets partial batches be padded to a fixed shape.
     A ``ResNetConfig``'s network is judged on its policy logits in eval
     mode."""
-    del expand_backend
-    forward = _eval_logits(cfg)
+    forward = _family(cfg, None).logits
 
     @torch.no_grad()
     def step(model, batch):

@@ -40,7 +40,7 @@ from deepgo_tpu.training import optimizers as jax_opt
 from deepgo_tpu.training import steps as jax_steps
 
 from deepgo_tpu_torch.experiments.checkpoint import tree_leaves
-from deepgo_tpu_torch.models import convert, policy_cnn
+from deepgo_tpu_torch.models import convert, policy_cnn, resnet
 from deepgo_tpu_torch.ops import wire
 from deepgo_tpu_torch.training import optimizers, steps
 
@@ -434,6 +434,83 @@ def test_step_refuses_a_model_of_another_config():
                                    model_cfg(channels=8), device="cpu")
     with pytest.raises(ValueError, match="config"):
         step(model, opt.init(model), torch_batch(make_batch()))
+
+
+
+# ---- one step body for both network families ----
+
+
+def family_case(family):
+    """(cfg, model, batch) of a small network of ``family``: "policy" (a
+    ``PolicyCNN``) or "dual" (a ``DualResNet``, its batch with ``z``)."""
+    batch = make_batch(augment=True)
+    if family == "policy":
+        cfg = model_cfg(num_layers=2, channels=8)
+        return cfg, policy_cnn.PolicyCNN(cfg), torch_batch(batch)
+    cfg = resnet.ResNetConfig(blocks=1, channels=8, compute_dtype="float32")
+    batch["z"] = np.random.default_rng(1).choice(
+        [-1.0, 0.0, 1.0], B).astype(np.float32)
+    return cfg, resnet.DualResNet(cfg), torch_batch(batch)
+
+
+@pytest.mark.parametrize("family,name", [("policy", "nll_from_logits"),
+                                         ("dual", "joint_loss")])
+def test_a_loss_patched_after_import_reaches_the_step(family, name,
+                                                      monkeypatch):
+    """A planted fault replaces the module's loss after import and before
+    the step is made; the step must compute the patched loss."""
+    cfg, model, batch = family_case(family)
+    calls = []
+
+    def planted(*args):
+        calls.append(len(args))
+        # every output of the forward in the graph, with a zero gradient
+        return sum(a.float().sum() for a in args[:2]) * 0.0 + 1000.0
+
+    monkeypatch.setattr(steps, name, planted)
+    opt = optimizers.sgd(0.0)
+    weights = [w.detach().clone() for w in (
+        model.l2_weights() if family == "dual" else ())]
+    _, _, loss = steps.make_train_step(cfg, opt, augment=True)(
+        model, opt.init(model), batch)
+    assert calls == [2 if family == "policy" else 4]
+    l2 = sum(float(w.square().sum()) for w in weights) * resnet.L2_WEIGHT
+    assert float(loss) == pytest.approx(1000.0 + l2, rel=1e-6)
+
+
+@pytest.mark.parametrize("family", ["policy", "dual"])
+def test_step_labels_run_in_order(family, monkeypatch):
+    """One step under a CPU profile: the ``train.*`` parts in the order the
+    step runs them, ``train.loss`` twice for the dual family (its L2 term
+    after the reduce), inside one ``train.step`` range. A stand-in mesh
+    and reduce bring in ``train.allreduce`` without a process group."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, model, batch = family_case(family)
+    reduced = []
+
+    def reduce(grads, loss, group):
+        reduced.append(group)
+        return grads, loss
+
+    monkeypatch.setattr(steps, "average_gradients", reduce)
+    mesh = types.SimpleNamespace(group=lambda axis: f"{axis} group")
+    opt = optimizers.sgd(0.1)
+    step = steps.make_train_step(cfg, opt, augment=True, mesh=mesh)
+    state = opt.init(model)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(model, state, batch)
+    events = sorted((e for e in prof.events() if e.name.startswith("train.")),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    assert names.count("train.step") == 1 and names[0] == "train.step"
+    after_reduce = ["train.loss"] if family == "dual" else []
+    assert names[1:] == ["train.unwire", "train.augment", "train.expand",
+                         "train.forward", "train.loss", "train.backward",
+                         "train.allreduce", *after_reduce, "train.optimizer"]
+    assert reduced == ["data group"]
 
 
 # ---- remat ----
