@@ -14,12 +14,26 @@ card, the plain version on the CPU) -> conv stack in ``cfg.compute_dtype``
 forward carries its ``device``; inputs already staged there as tensors
 pass straight through (the engine stages them under ``DEEPGO_XLACHECK=1``).
 
+A bulk call on the card (host arrays of at least two chunks of
+``SERVE_CHUNK_BOARDS`` boards) runs as a pipeline instead: its boards are
+cut into near-equal chunks (``_chunk_plan``), each chunk's rows go to the
+card through pinned memory on a side copy stream, the caller's stream
+runs the unchanged net on each chunk as its rows land, and each chunk's
+result comes back on a second copy stream into pinned memory, from which
+the host moves it into the result while later chunks run. So the copies
+of one chunk hide under the convolutions of another, and the host waits
+on CUDA events only. Every forward here is row-independent, so the result
+is the rows of the whole batch; pinned memory never leaves the call.
+
 Every forward here and in ``models/quant.py`` runs through ``serve``, in
 three back-to-back hot spans a call (``obs.spans.hot_laps``, a
 ``hot_span`` block each while a profiler capture runs): ``serve.h2d``
-(the inputs onto the device), ``serve.net`` (expansion, network and
-log-softmax, as they are enqueued) and ``serve.d2h`` (the host waiting
-for the device, then the copy back).
+(the inputs onto the device; pipelined, the first chunk's staging and
+copy), ``serve.net`` (expansion, network and log-softmax, as they are
+enqueued; pipelined, the later chunks' staging and copies, every chunk's
+net and copy back, and the moves of all chunks but the last) and
+``serve.d2h`` (the host waiting for the device, then the copy back;
+pipelined, the wait for the last chunk and its move).
 """
 
 from __future__ import annotations
@@ -65,28 +79,43 @@ def serve(laps: hot_laps, device: torch.device, net, params, packed, player,
     ``device``, its result (a tensor, or a dict of them) back on the host
     as numpy, in the spans ``serve.h2d``, ``serve.net`` and ``serve.d2h``.
     ``staged`` is a list holding the (packed, player, rank) tensors, which
-    the net pops: they are freed once expanded, before the network runs."""
+    the net pops: they are freed once expanded, before the network runs.
+    A bulk call on the card runs as a pipeline of chunks
+    (``_pipeline_plan``)."""
+    plan = _pipeline_plan(device, packed, player, rank)
+    if plan:
+        return _serve_chunks(laps, device, net, params, packed, player,
+                             rank, plan)
+    return _in_laps(laps, lambda: [inputs_on(device, packed, player, rank)],
+                    lambda staged: net(params, staged), _to_host)
+
+
+def _in_laps(laps: hot_laps, h2d, run, d2h):
+    """``d2h(run(h2d()))``, the three parts timed as ``serve.h2d``,
+    ``serve.net`` and ``serve.d2h``: laps from the caller's stamps, or a
+    ``hot_span`` block each while a profiler capture runs. A part that
+    raises is recorded as failed, and the exception propagates."""
     if capturing():
         with hot_span("serve.h2d"):
-            staged = [inputs_on(device, packed, player, rank)]
+            x = h2d()
         with hot_span("serve.net"):
-            out = net(params, staged)
+            x = run(x)
         with hot_span("serve.d2h"):
-            return _to_host(out)
+            return d2h(x)
     stamps = [time.perf_counter()]
     try:
-        staged = [inputs_on(device, packed, player, rank)]
+        x = h2d()
         stamps.append(time.perf_counter())
-        out = net(params, staged)
+        x = run(x)
         stamps.append(time.perf_counter())
-        out = _to_host(out)
+        x = d2h(x)
     except BaseException:
         stamps.append(time.perf_counter())
         laps.failed(stamps)
         raise
     stamps.append(time.perf_counter())
     laps.observe(stamps)
-    return out
+    return x
 
 
 def _to_host(out):
@@ -119,6 +148,167 @@ def conv_rows(batch: int, device) -> int:
     if torch.device(device).type == "cuda":
         return max(batch, CARD_MIN_ROWS)
     return batch
+
+
+# A bulk call on the card runs as a pipeline of chunks of about this many
+# boards. On an NVIDIA H100 (700 W, torch 2.11, CUDA 12.8), ``full`` at B =
+# 8,192, back to back: 1,024-board chunks give 290k boards/s (the host's
+# enqueue of eight nets paces the call), 2,048 give 313k, 4,096 give
+# 294-302k (half the batch's staging and copy back exposed at each end of
+# the call), the call served whole 255-274k. Below two chunks a call is
+# served whole, pageable: there one chunk through pinned memory and the side
+# streams took 1.25x the whole call's time at 1 and 8 boards, 1.43x at 128,
+# 1.10x at 512 and 0.96x at 3,000 (medians of seven rounds, same card).
+SERVE_CHUNK_BOARDS = 2048
+
+
+def _chunk_plan(batch: int, chunk_boards: int) -> list[slice]:
+    """The chunks of a pipelined call of ``batch`` boards: ceil(batch /
+    chunk) slices of near-equal size (they differ by a board at most), or
+    none where the batch holds fewer than two chunks. A chunk is at least
+    2 * ``CARD_MIN_ROWS`` boards, so that no slice falls under
+    ``CARD_MIN_ROWS``."""
+    chunk = max(chunk_boards, 2 * CARD_MIN_ROWS)
+    if batch < 2 * chunk:
+        return []
+    n = -(-batch // chunk)
+    bounds = [i * batch // n for i in range(n + 1)]
+    return [slice(a, b) for a, b in zip(bounds, bounds[1:])]
+
+
+def _pipeline_plan(device: torch.device, packed, player, rank
+                   ) -> list[slice]:
+    """The chunks ``serve`` pipelines a call into: none (the call is
+    served whole) off the card, for inputs already staged as tensors, and
+    for a batch of fewer than two chunks."""
+    if device.type != "cuda" or any(isinstance(a, torch.Tensor)
+                                    for a in (packed, player, rank)):
+        return []
+    return _chunk_plan(len(packed), SERVE_CHUNK_BOARDS)
+
+
+def _serve_chunks(laps: hot_laps, device: torch.device, net, params,
+                  packed, player, rank, plan: list[slice]):
+    """``serve`` of the host arrays cut into the chunks of ``plan``
+    (slices covering the batch in order), pipelined on the card: the same
+    result, the same three spans."""
+    call = _Pipeline(device, net, params, (packed, player, rank), plan)
+    return _in_laps(laps, call.first, call.run, call.finish)
+
+
+# the dtypes of packed, player and rank on the card
+_INPUT_DTYPES = (torch.uint8, torch.int32, torch.int32)
+
+
+class _Pipeline:
+    """One pipelined serving call on the card.
+
+    Chunk k's input rows are copied into pinned memory and sent to the
+    card on a copy-in stream; the caller's stream waits for them (an
+    event) and runs the net; the copy-out stream waits for the
+    net (an event) and copies chunk k's result into pinned memory; the
+    host waits for that copy (an event) and moves the rows into the
+    result (``_stitch``). The host enqueues chunk k's net, its copy back
+    and chunk k + 1's copy in before it waits for chunk k - 1, so the card
+    always has a chunk to run while the host stages and moves. Device
+    tensors used on a stream other than the one that made them are
+    recorded on it (``record_stream``)."""
+
+    def __init__(self, device, net, params, arrays, plan):
+        self.device, self.net, self.params, self.plan = (device, net, params,
+                                                         plan)
+        self.arrays = [np.asarray(a) for a in arrays]
+        # side streams from torch's pool, one for each way
+        self.copy_in = torch.cuda.Stream(device)
+        self.copy_out = torch.cuda.Stream(device)
+        self.compute = torch.cuda.current_stream(device)
+        self.landing = []  # chunk k's ({key: pinned tensor}, landed event)
+        self.result = {}
+
+    def first(self) -> tuple[tuple, torch.cuda.Event]:
+        return self._stage(self.plan[0])
+
+    def run(self, staged: tuple[tuple, torch.cuda.Event]) -> None:
+        for k in range(len(self.plan)):
+            self.landing.append(self._copy_back(self._net(*staged)))
+            if k + 1 < len(self.plan):
+                staged = self._stage(self.plan[k + 1])
+            if k:
+                self._move(k - 1)
+
+    def finish(self, _):
+        self._move(len(self.plan) - 1)
+        return self.result.get(None, self.result)
+
+    def _stage(self, rows: slice) -> tuple[tuple, torch.cuda.Event]:
+        host = []
+        for a, dtype in zip(self.arrays, _INPUT_DTYPES):
+            part = a[rows]
+            pinned = torch.empty(part.shape, dtype=dtype, pin_memory=True)
+            _host_copy(pinned, part)
+            host.append(pinned)
+        with torch.cuda.stream(self.copy_in):
+            staged = tuple(t.to(self.device, non_blocking=True)
+                           for t in host)
+            ready = torch.cuda.Event()
+            ready.record(self.copy_in)
+        return staged, ready
+
+    def _net(self, staged: tuple, ready: torch.cuda.Event):
+        self.compute.wait_event(ready)
+        for t in staged:
+            t.record_stream(self.compute)
+        return self.net(self.params, [staged])
+
+    def _copy_back(self, out) -> tuple[dict, torch.cuda.Event]:
+        done = torch.cuda.Event()
+        done.record(self.compute)
+        host = {}
+        with torch.cuda.stream(self.copy_out):
+            self.copy_out.wait_event(done)
+            for key, t in _leaves(out).items():
+                t.record_stream(self.copy_out)
+                host[key] = torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                host[key].copy_(t, non_blocking=True)
+            landed = torch.cuda.Event()
+            landed.record(self.copy_out)
+        return host, landed
+
+    def _move(self, k: int) -> None:
+        host, landed = self.landing[k]
+        self.landing[k] = None
+        landed.synchronize()
+        _stitch(self.result, {key: stage_d2h(t) for key, t in host.items()},
+                self.plan[k], self.plan[-1].stop)
+
+
+def _leaves(out) -> dict:
+    """A net's result as {key: tensor}: a dict as it is, a tensor under
+    ``None``."""
+    return out if isinstance(out, dict) else {None: out}
+
+
+def _stitch(result: dict, rows: dict, where: slice, batch: int) -> None:
+    """One chunk's rows ({key: array}) into ``result``'s arrays of
+    ``batch`` rows at ``where``; each array is made, owning its memory, by
+    the first chunk that reaches it."""
+    for key, part in rows.items():
+        if key not in result:
+            result[key] = np.empty((batch, *part.shape[1:]), part.dtype)
+        _host_copy(torch.from_numpy(result[key][where]), part)
+
+
+def _host_copy(dst: torch.Tensor, src: np.ndarray) -> None:
+    """``dst[...] = src`` on the host, cast as ``np.ascontiguousarray``
+    casts: in torch's intra-op threads (numpy copies in one) where torch
+    can wrap ``src`` as it is (dst's dtype, writeable, no negative stride),
+    else through numpy."""
+    if (src.dtype == dst.numpy().dtype and src.flags.writeable
+            and min(src.strides, default=0) >= 0):
+        dst.copy_(torch.from_numpy(src))
+    else:
+        np.copyto(dst.numpy(), src, casting="unsafe")
 
 
 def log_policy_rows(params: policy_cnn.PolicyCNN, planes: torch.Tensor,
